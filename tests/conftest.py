@@ -44,6 +44,8 @@ def pytest_configure(config):
         "markers", "timeout(seconds): relax/tighten the per-test wall-clock cap")
     config.addinivalue_line(
         "markers", "slow: long-running test, excluded from the fast tier (-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips (inside the test) where there is none")
 
 
 @pytest.hookimpl(hookwrapper=True)

@@ -10,8 +10,12 @@ exits non-zero, printing no result):
   1. build: compiles the Gram kernel (csrc/gram.cu) from the checkout;
   2. kernel vs plain: the Gram kernel against the plain PyTorch version
      (computed in f64 on the same inputs) at the main path's shapes and
-     the widest Gram the repository uses; tolerance 1e-5 of max|G|;
-     CUDA-event times of the kernel and of the plain f32 version;
+     the widest Gram the repository uses, each Y laid out as the Gram
+     sites build it (rows padded to 16 bytes; the ragged shape is
+     contiguous and goes through the wrapper's copy); tolerance 1e-5 of
+     max|G|, bitwise reproducible, one launch per call; CUDA-event times
+     of one call of the kernel and of the plain f32 version, and the
+     least time the card could take (bytes or operations);
   3. main path, bench-equivalent (bench.py's headline): the 7-DOF arm,
      2000 random states, simulate -> streamed per-channel Grams -> OLS ->
      physically consistent SDP -> reporting, one cold and 5 warm passes,
@@ -19,7 +23,13 @@ exits non-zero, printing no result):
      both Gram sites (structural and per-channel);
   4. the same at 60 000 states (a 5-minute log at 200 Hz);
   5. the port on the card against the port on the CPU (plain versions)
-     on the checked-in structural cache, so both use one projection.
+     on the checked-in structural cache, so both use one projection; the
+     structural rank found on the card (phases 3-4, cache misses) must
+     equal the CPU run's;
+  6. device times from torch.profiler of the kernel and of the library
+     call (the einsum) in turns at phase 2's shapes, and the kernel's
+     share of its bound; last, so no profiler session runs before the
+     main path's walls are read.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -37,7 +47,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARM_URDF = os.path.join(REPO, "examples", "models", "sevenlink_arm.urdf")
-GRAM_TOL = 1e-5  # max|G_kernel - G_f64| / max|G_f64| (plain f32 FMA, split sum chains)
+GRAM_TOL = 1e-5  # max|G_kernel - G_f64| / max|G_f64| (split-TF32 tensor cores, f64 split sums)
+# published peaks of the NVIDIA H100 SXM (data sheet, 700 W): HBM3 bytes/s,
+# dense TF32 tensor-core FLOP/s (the fastest unit an f32-accurate Gram can use)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32_FLOP_PER_S = 495e12
 BENCH_OPTIONS = dict(
     floatingBase=0, simulateTorques=1, useStructuralRegressor=1,
     randomSamples=2000, estimateWith="std", materializeRegressor=0,
@@ -98,6 +112,33 @@ def event_times_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = 20) -> tuple[float, list[str]]:
+    """Device time of one call: the CUDA kernels' time in a torch.profiler
+    window of `reps` calls, over `reps`, and the kernels' names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(kernels, "torch.profiler recorded no CUDA kernel")
+    return sum(e.device_time_total for e in kernels) / 1e3 / reps, sorted({e.name for e in kernels})
+
+
+def gram_bound_ms(N: int, B: int, C: int) -> tuple[float, str]:
+    """The least time the card could take for the Gram: Y read once and G
+    written once at the memory rate, or the symmetric product's
+    N*B*C*(C+1) FLOP at the TF32 peak, whichever is larger."""
+    t_bytes = 4 * (N * B * C + B * C * C) / PEAK_BYTES_PER_S * 1e3
+    t_ops = N * B * C * (C + 1) / PEAK_TF32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def physically_consistent(idf) -> bool:
     """PSD spatial inertia of every non-empty link of the identified
     standard parameters (the constraint the SDP enforces)."""
@@ -116,22 +157,36 @@ def physically_consistent(idf) -> bool:
     return True
 
 
+KERNEL_SHAPES = [  # (name, N, B, C)
+    ("structural_B1_M14000_C80", 14000, 1, 80),
+    ("per_channel_B7_N2000_C82", 2000, 7, 82),
+    ("per_channel_B7_N60000_C82", 60000, 7, 82),
+    ("humanoid30_B30_N13770_C342", 13770, 30, 342),
+    ("ragged_M1037_C37", 1037, 1, 37),
+]
+
+
+def kernel_input(gen, name: str, N: int, B: int, C: int):
+    """Y as the Gram sites build it (ops.gram.cat_padded: rows padded to
+    16 bytes); the ragged shape is contiguous and goes through the
+    wrapper's copy."""
+    import torch
+
+    width = C if name.startswith("ragged") else C + (-C % 4)
+    return torch.randn((N, B, width), generator=gen, device="cuda", dtype=torch.float32)[..., :C]
+
+
 def phase_kernels(gram) -> dict:
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    shapes = [  # (name, N, B, C)
-        ("structural_B1_M14000_C80", 14000, 1, 80),
-        ("per_channel_B7_N2000_C82", 2000, 7, 82),
-        ("per_channel_B7_N60000_C82", 60000, 7, 82),
-        ("humanoid30_B30_N13770_C342", 13770, 30, 342),
-        ("ragged_M1037_C37", 1037, 1, 37),
-    ]
     out = {}
-    for name, N, B, C in shapes:
-        Y = torch.randn((N, B, C), generator=gen, device="cuda", dtype=torch.float32)
+    for name, N, B, C in KERNEL_SHAPES:
+        Y = kernel_input(gen, name, N, B, C)
+        before = gram.launches
         Gk = gram.gram_batched(Y)
+        check(gram.launches == before + 1, f"Gram kernel {name}: {gram.launches - before} launches")
         G64 = gram.gram_plain(Y.double())
         torch.cuda.synchronize()
         rel = float((Gk.double() - G64).abs().max() / G64.abs().max())
@@ -141,10 +196,36 @@ def phase_kernels(gram) -> dict:
         check(torch.equal(Gk, gram.gram_batched(Y)), f"Gram kernel {name}: not reproducible")
         ms = event_times_ms(lambda: gram.gram_batched(Y))
         plain_ms = event_times_ms(lambda: gram.gram_plain(Y))
-        out[name] = dict(N=N, B=B, C=C, rel_err=rel, max_abs_err=abs_err,
-                         ms=ms, plain_ms=plain_ms)
+        bound, bound_by = gram_bound_ms(N, B, C)
+        out[name] = dict(N=N, B=B, C=C, row_stride=Y.stride(0), rel_err=rel, max_abs_err=abs_err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_us=bound * 1e3,
+                         bound_by=bound_by)
         emit("kernel_vs_plain", shape=name, **out[name])
     return out
+
+
+def phase_device_times(gram, kern: dict) -> None:
+    """torch.profiler device times of the kernel and of the library call
+    (the plain version's einsum, the yardstick) in turns: kernel,
+    library, library, kernel. Run after the main path: the main path's
+    walls are read with no profiler session before them in the process."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for name, N, B, C in KERNEL_SHAPES:
+        Y = kernel_input(gen, name, N, B, C)
+        k1, k_names = device_ms(lambda: gram.gram_batched(Y))
+        l1, l_names = device_ms(lambda: gram.gram_plain(Y))
+        l2, _ = device_ms(lambda: gram.gram_plain(Y))
+        k2, _ = device_ms(lambda: gram.gram_batched(Y))
+        check(any("gram_tf32_kernel" in n for n in k_names), f"Gram kernel {name}: not in {k_names}")
+        dev, lib = (k1 + k2) / 2, (l1 + l2) / 2
+        times = dict(device_ms=dev, device_ms_turns=[k1, k2], library_ms=lib,
+                     library_ms_turns=[l1, l2], bound_share=kern[name]["bound_ms"] / dev,
+                     kernels=k_names, library_kernels=l_names)
+        kern[name].update(times)
+        emit("kernel_device_time", shape=name, **times)
 
 
 def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
@@ -228,10 +309,11 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="flobaroid_chip_smoke_")
     try:
         gram.launches = 0
+        card_ranks = {}
         for label, n, warm in (("main_path_N2000", 2000, 5), ("main_path_N60000", 60000, 2)):
             urdf = os.path.join(tmp, f"{label}.urdf")
             shutil.copy(ARM_URDF, urdf)  # structural cache miss: _random_gram runs
-            run_main_path(gram, urdf, n, warm, "cuda", label)
+            card_ranks[label] = run_main_path(gram, urdf, n, warm, "cuda", label)["num_base_params"]
         total_launches = gram.launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -249,8 +331,14 @@ def main() -> int:
     check(dx <= 1e-4, f"cuda vs cpu xBase rel diff {dx}")
     check(rg["sdp_status"] == rc["sdp_status"], "cuda vs cpu sdp status")
     check(dres <= 1e-3, f"cuda vs cpu res_error diff {dres}")
+    for label, rank in card_ranks.items():
+        check(rank == rc["num_base_params"],
+              f"{label}: structural rank {rank} on the card, {rc['num_base_params']} on the CPU")
     check("jax" not in sys.modules, "jax was imported")
+    check(not any(m == "flobaroid_tpu" or m.startswith("flobaroid_tpu.") for m in sys.modules),
+          "the JAX package flobaroid_tpu was imported")
 
+    phase_device_times(gram, kern)
     main_shape = kern["per_channel_B7_N2000_C82"]
     print(json.dumps({"kernels": [{
         "name": "gram_batched",
@@ -258,9 +346,15 @@ def main() -> int:
         "source": "flobaroid_tpu_torch/csrc/gram.cu",
         "replaces": "flobaroid_tpu/ops/gram.py:48",
         "launches": total_launches,
+        "shape": "2000x7x82",
         "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
+        "ms": main_shape["device_ms"],
+        # the plain version is the library call (gram_plain is the einsum)
+        "plain_ms": main_shape["library_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_us": main_shape["bound_us"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,16 +9,17 @@ hand-written CUDA kernel on NVIDIA Hopper (`ops/gram.py`,
 
 Module names follow the JAX package so each counterpart is easy to
 find. Conventions of the port:
-  * every entry point takes an explicit `device` ("cpu" or "cuda");
-    nothing silently picks one,
+  * every entry point runs on the card (`device="cuda"`) unless the
+    caller asks for the CPU (`device="cpu"`); "cuda" without a card
+    raises, with no CPU fallback,
   * the sample axis is a leading batch dimension (no vmap), chunked
     loops replace lax.scan,
   * random draws use explicit torch.Generators.
 
-The numpy/scipy/xml-only modules of the JAX package (models/urdf.py,
-models/geometry.py, utils/helpers.py, identification/least_squares.py)
-are imported from `flobaroid_tpu` unchanged; `flobaroid_tpu/__init__.py`
-imports nothing, so that does not load JAX.
+The port imports neither JAX nor anything of `flobaroid_tpu`: it keeps
+its own copies of the numpy/scipy/xml-only code it needs
+(`models/urdf.py`, `models/geometry.py`, `utils/helpers.py`,
+`identification/least_squares.py`). Only its tests import both packages.
 """
 
 __version__ = "0.1.0"

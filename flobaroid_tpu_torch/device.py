@@ -21,8 +21,9 @@ def apply_precision_policy() -> None:
 
 
 def resolve_device(device) -> torch.device:
-    """The explicit device of a computation. There is no default: a
-    missing device is an error, and "cuda" without a card is one too."""
+    """The device of a computation (the entry points default to "cuda").
+    None is an error, and "cuda" without a card is one too: there is no
+    CPU fallback."""
     if device is None:
         raise ValueError("an explicit device is required ('cpu' or 'cuda')")
     dev = torch.device(device)

@@ -14,8 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flobaroid_tpu.models.urdf import RobotTree, rpy_to_matrix
-
+from ..models.urdf import RobotTree, rpy_to_matrix
 from . import spatial as sp
 
 

@@ -15,11 +15,11 @@ from typing import Any
 
 import numpy as np
 
-from flobaroid_tpu.identification import least_squares as ls
-from flobaroid_tpu.utils import helpers
-
 from ..data import Data
 from ..model import Model, not_ported
+from ..models.urdf import load_urdf
+from ..utils import helpers
+from . import least_squares as ls
 
 
 class Identification:
@@ -32,7 +32,7 @@ class Identification:
         regressor_file: str | None = None,
         validation_file: str | None = None,
         *,
-        device,
+        device="cuda",
     ):
         self.opt = opt
         # hidden experiment flags (reference identifier.py:55-69) — only
@@ -62,8 +62,6 @@ class Identification:
         self.urdf_file_real = urdf_file_real
         self.xStdReal: np.ndarray | None = None
         if urdf_file_real:
-            from flobaroid_tpu.models.urdf import load_urdf
-
             tree_real = load_urdf(urdf_file_real, joint_order=self.model.jointNames)
             self.xStdReal = np.concatenate(
                 [

@@ -38,8 +38,7 @@ import numpy as np
 import numpy.linalg as la
 import scipy.linalg as sla
 
-from flobaroid_tpu.models.geometry import link_bounding_box
-
+from ..models.geometry import link_bounding_box
 from . import conic
 
 

@@ -30,13 +30,12 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
-from flobaroid_tpu.models.urdf import RobotTree, joint_names_from_regressor_xml, load_urdf
-from flobaroid_tpu.utils import helpers
-
 from .data import Data
 from .device import resolve_device, torch_dtype
 from .dynamics.engine import DynamicsEngine
-from .ops.gram import gram_batched
+from .models.urdf import RobotTree, joint_names_from_regressor_xml, load_urdf
+from .ops.gram import cat_padded, gram_batched
+from .utils import helpers
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -58,7 +57,7 @@ class Model:
         regressor_file: str | None = None,
         regressor_init: bool = True,
         *,
-        device,
+        device="cuda",
     ):
         self.device = resolve_device(device)
         if opt["floatingBase"]:
@@ -458,7 +457,7 @@ class Model:
         # (P+2, P+2) augmented Gram; summed over chunks in f64
         Gaug = torch.zeros((rows, P + 2, P + 2), dtype=torch.float64, device=self.device)
         for sl, Y in self._identified_chunks(st):
-            aug = torch.cat([Y, tau[sl, :, None], cf[sl, :, None]], dim=2)
+            aug = cat_padded([Y, tau[sl, :, None], cf[sl, :, None]])
             Gaug += gram_batched(aug).double()
 
         self.YStd = None
@@ -700,7 +699,9 @@ class Model:
                     if stribeck > 0:
                         blocks.append(torch.diag_embed(
                             torch.exp(-dq.abs() / stribeck) * torch.sign(dq)))
-                Y = torch.cat([Y, *blocks], dim=2)
+                Y = cat_padded([Y, *blocks])
+            else:
+                Y = cat_padded([Y])
             G += gram_batched(Y.reshape(c * nd, 1, P)).double()
         return G[0].cpu().numpy()
 

@@ -30,10 +30,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("N,B,C", [(14000, 1, 80), (2000, 7, 82), (1037, 1, 37), (5, 3, 1)])
+@pytest.mark.parametrize("N,B,C", [(14000, 1, 80), (2000, 7, 82), (1037, 1, 37), (5, 3, 1),
+                                   (13770, 30, 342), (60000, 7, 82), (777, 2, 201)])
 def test_gram_kernel_matches_plain(cuda_device, N, B, C):
     """Kernel vs the plain version in f64 on the same inputs: 1e-5 of
-    max|G| (plain f32 FMA, row splits bound each sum chain)."""
+    max|G| (split-TF32 tensor cores, partials summed in f64), one launch
+    per call, whatever the layout: contiguous (copied first when C is not
+    a multiple of 4), a channel-major strided view, and the Gram sites'
+    padded view with C not a multiple of 4."""
     g = torch.Generator(device=cuda_device)
     g.manual_seed(0)
     Y = torch.randn((N, B, C), generator=g, device=cuda_device)
@@ -45,8 +49,12 @@ def test_gram_kernel_matches_plain(cuda_device, N, B, C):
     assert float((Gk.double() - G64).abs().max() / G64.abs().max()) <= 1e-5
     assert torch.equal(Gk, tgram.gram_batched(Y))  # no atomics: bitwise reproducible
     assert torch.equal(Gk, Gk.transpose(1, 2))
-    Yt = Y.permute(1, 0, 2).contiguous().permute(1, 0, 2)  # strided view, no copy
+    Yt = Y.permute(1, 0, 2).contiguous().permute(1, 0, 2)  # strided view
     assert torch.equal(tgram.gram_batched(Yt), Gk)
+    Yp = tgram.cat_padded([Y])  # rows padded to 16 bytes, read in place
+    before = tgram.launches
+    assert torch.equal(tgram.gram_batched(Yp), Gk)
+    assert tgram.launches == before + 1
 
 
 def test_gram_wrapper_raises_instead_of_falling_back(cuda_device):

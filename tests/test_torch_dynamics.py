@@ -3,12 +3,14 @@
 Same inputs (numpy seed) through flobaroid_tpu.dynamics.engine and
 flobaroid_tpu_torch.dynamics.engine on the 7-DOF arm, the small
 revolute/prismatic chain of test_dynamics.py and a mimic model, fixed
-and floating base, N = 32. Tolerances: f64 1e-10 relative to max|Y|
+and floating base, N = 32. Each engine gets its tree from its own
+package's `load_urdf`. Tolerances: f64 1e-10 relative to max|Y|
 (both sides compute the same formulas in f64; differences are rounding
 order), f32 1e-5 (the port in f32 against the JAX engine in f64: f32
 rounding of the kinematic chain).
 """
 
+import glob
 import os
 
 import jax.numpy as jnp
@@ -19,9 +21,12 @@ import torch
 from flobaroid_tpu.dynamics import spatial as jsp
 from flobaroid_tpu.dynamics.engine import DynamicsEngine as JaxEngine
 from flobaroid_tpu.dynamics.engine import rpy_to_base_rot as jax_rpy_to_base_rot
-from flobaroid_tpu.models.urdf import load_urdf
+from flobaroid_tpu.models import geometry as jgeo
+from flobaroid_tpu.models.urdf import load_urdf as jax_load_urdf
 from flobaroid_tpu_torch.dynamics import spatial as tsp
 from flobaroid_tpu_torch.dynamics.engine import DynamicsEngine, rpy_to_base_rot, rpy_to_base_rot_np
+from flobaroid_tpu_torch.models import geometry as tgeo
+from flobaroid_tpu_torch.models.urdf import load_urdf
 
 from test_dynamics import SIMPLE_URDF
 from test_mimic import MIMIC_URDF
@@ -42,7 +47,23 @@ def robots(tmp_path_factory):
         p = d / f"{name}.urdf"
         p.write_text(text)
         out[name] = str(p)
-    return {k: load_urdf(v) for k, v in out.items()}
+    return {k: (jax_load_urdf(v), load_urdf(v)) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(REPO, "examples", "models", "*.urdf"))),
+                         ids=os.path.basename)
+def test_load_urdf_matches_jax(path):
+    """The port's copy of the URDF parser and bounding boxes gives the JAX
+    package's names, DOF order, limits and a-priori parameters."""
+    j, t = jax_load_urdf(path), load_urdf(path)
+    assert t.dof_names == j.dof_names and t.link_names == j.link_names
+    assert [x.name for x in t.joints] == [x.name for x in j.joints]
+    assert np.array_equal(t.std_params(), j.std_params())
+    assert np.array_equal(t.parent_link, j.parent_link) and t.mimic_map == j.mimic_map
+    assert t.joint_limits() == j.joint_limits()
+    for name in j.link_names:
+        assert np.array_equal(np.asarray(tgeo.link_bounding_box(t, name, scale=1.1)),
+                              np.asarray(jgeo.link_bounding_box(j, name, scale=1.1)))
 
 
 _JAX = {}
@@ -97,9 +118,9 @@ IDS = [f"{r}-{'floating' if fl else 'fixed'}-{str(dt)[6:]}" for r, fl, dt in CAS
 
 @pytest.mark.parametrize("robot,floating,dtype", CASES, ids=IDS)
 def test_regressor_batch_matches_jax(robots, robot, floating, dtype):
-    tree = robots[robot]
+    jtree, tree = robots[robot]
     arrs = _inputs(tree)
-    Yj = _jax_reference(tree, robot, "regressor_batch", floating, seed=0)
+    Yj = _jax_reference(jtree, robot, "regressor_batch", floating, seed=0)
     Yt = DynamicsEngine(tree).regressor_batch(*_torch_args(arrs, floating, dtype))
     assert Yt.dtype == dtype and tuple(Yt.shape) == Yj.shape
     assert _rel(Yt.double().numpy(), Yj) < TOL[dtype]
@@ -107,10 +128,10 @@ def test_regressor_batch_matches_jax(robots, robot, floating, dtype):
 
 @pytest.mark.parametrize("robot,floating,dtype", CASES, ids=IDS)
 def test_inverse_dynamics_batch_matches_jax(robots, robot, floating, dtype):
-    tree = robots[robot]
+    jtree, tree = robots[robot]
     arrs = _inputs(tree, seed=1)
     pi = tree.std_params()
-    tj = _jax_reference(tree, robot, "inverse_dynamics_batch", floating, seed=1)
+    tj = _jax_reference(jtree, robot, "inverse_dynamics_batch", floating, seed=1)
     tt = DynamicsEngine(tree).inverse_dynamics_batch(
         torch.tensor(pi, dtype=dtype), *_torch_args(arrs, floating, dtype))
     assert tuple(tt.shape) == tj.shape
@@ -121,7 +142,7 @@ def test_inverse_dynamics_batch_matches_jax(robots, robot, floating, dtype):
 @pytest.mark.parametrize("floating", [False, True], ids=["fixed", "floating"])
 def test_regressor_rnea_identity(robots, robot, floating):
     """The port's own Y(q, dq, ddq) @ pi == RNEA(q, dq, ddq; pi)."""
-    tree = robots[robot]
+    _, tree = robots[robot]
     eng = DynamicsEngine(tree)
     args = _torch_args(_inputs(tree, seed=2), floating, torch.float64)
     pi = torch.tensor(tree.std_params())
@@ -131,9 +152,9 @@ def test_regressor_rnea_identity(robots, robot, floating):
 
 
 def test_single_sample_and_fk_match_jax(robots):
-    tree = robots["arm"]
+    jtree, tree = robots["arm"]
     Q, V, A, BR, BV, BA = _inputs(tree, seed=3)
-    je, te = JaxEngine(tree), DynamicsEngine(tree)
+    je, te = JaxEngine(jtree), DynamicsEngine(tree)
     Rj, pj = je.fk(jnp.asarray(Q[0]))
     Rt, pt = te.fk(torch.tensor(Q[0]))
     assert _rel(Rt.numpy(), Rj) < 1e-12 and _rel(pt.numpy(), pj) < 1e-12

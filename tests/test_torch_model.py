@@ -160,9 +160,11 @@ def test_structural_rank_and_column_space(tmp_path, dtype):
         assert np.arccos(np.clip(cos, -1.0, 1.0)).max() < 1e-6
 
 
-def test_model_requires_a_device_and_fixed_base(arm_copy):
-    with pytest.raises(TypeError):
-        Model(_opt("inertial", "float64"), arm_copy)  # no default device
+def test_model_requires_a_device_and_fixed_base(arm_copy, monkeypatch):
+    # the default device is the card: without one it raises, with no CPU fallback
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(_opt("inertial", "float64"), arm_copy)
     with pytest.raises(ValueError):
         Model(_opt("inertial", "float64"), arm_copy, device=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -142,14 +142,15 @@ idf.data.init_from_data(dict(positions=rng.uniform(-1, 1, (n, nd)),
     torques=np.zeros((n, nd)), times=np.arange(n) / 200.0, frequency=np.array(200.0)))
 idf.estimateParameters()
 assert idf.sdp.last_status.startswith("optimal"), idf.sdp.last_status
-print("jax" in sys.modules, "yaml" in sys.modules)
+print("jax" in sys.modules, "yaml" in sys.modules,
+      any(m == "flobaroid_tpu" or m.startswith("flobaroid_tpu.") for m in sys.modules))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "2"  # as the test processes: tier-1 runs 6 workers
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, env=env, cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"]
+    assert out.stdout.split() == ["False", "False", "False"]
 
 
 def test_config_defaults_equal_jax():
@@ -165,9 +166,11 @@ def test_config_reads_yaml_file(tmp_path):
     assert torch_config.load_config(str(p)) == jax_config.load_config(str(p))
 
 
-def test_unported_branches_raise(arm_copy):
-    with pytest.raises(TypeError):
-        Identification(jax_config.load_config(None, overrides=BENCH), arm_copy)
+def test_unported_branches_raise(arm_copy, monkeypatch):
+    with monkeypatch.context() as m:  # the default device is the card: no CPU fallback
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Identification(jax_config.load_config(None, overrides=BENCH), arm_copy)
     idf = Identification(jax_config.load_config(None, overrides={**BENCH, "useEssentialParams": 1}),
                          arm_copy, device="cpu")
     idf.data.init_from_data(build_samples(arm_copy, n=400))

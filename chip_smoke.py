@@ -9,8 +9,11 @@ exits non-zero, printing no result):
   0. device: torch/CUDA versions and the card's name and power limit;
   1. build: compiles the Gram kernel (csrc/gram.cu) from the checkout;
   2. kernel vs plain: the Gram kernel against the plain PyTorch version
-     (computed in f64 on the same inputs) at the main path's shapes and
-     the widest Gram the repository uses, each Y laid out as the Gram
+     (computed in f64 on the same inputs) at every shape the main path
+     sends it (the structural Gram, and the per-channel chunks of 2000,
+     4096 and the 2656-sample tail of 60 000) and at three extra shapes
+     no path of this slice runs (60 000 rows in one call, the widest
+     Gram the repository uses, a ragged C), each Y laid out as the Gram
      sites build it (rows padded to 16 bytes; the ragged shape is
      contiguous and goes through the wrapper's copy); tolerance 1e-5 of
      max|G|, bitwise reproducible, one launch per call; CUDA-event times
@@ -20,7 +23,8 @@ exits non-zero, printing no result):
      2000 random states, simulate -> streamed per-channel Grams -> OLS ->
      physically consistent SDP -> reporting, one cold and 5 warm passes,
      held to the bench's gates; the kernel's launch count must rise in
-     both Gram sites (structural and per-channel);
+     both Gram sites (structural and per-channel), once per chunk of
+     samples, and every chunk must be a shape phase 2 checked;
   4. the same at 60 000 states (a 5-minute log at 200 Hz);
   5. the port on the card against the port on the CPU (plain versions)
      on the checked-in structural cache, so both use one projection; the
@@ -112,22 +116,29 @@ def event_times_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 20) -> tuple[float, list[str]]:
+def device_ms(fn, reps: int = 20, sessions: int = 3) -> tuple[float, list[str]]:
     """Device time of one call: the CUDA kernels' time in a torch.profiler
-    window of `reps` calls, over `reps`, and the kernels' names."""
+    window of `reps` calls, over `reps`, and the kernels' names. A session
+    now and then records no kernel at all (seen once in ~30 sessions of
+    one process on an H100); such a session is reported and run again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(sessions):
+        fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(kernels, "torch.profiler recorded no CUDA kernel")
-    return sum(e.device_time_total for e in kernels) / 1e3 / reps, sorted({e.name for e in kernels})
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            return (sum(e.device_time_total for e in kernels) / 1e3 / reps,
+                    sorted({e.name for e in kernels}))
+        print("torch.profiler recorded no CUDA kernel; profiling again", file=sys.stderr)
+    raise RuntimeError(f"chip smoke check failed: torch.profiler recorded no CUDA kernel "
+                       f"in {sessions} sessions")
 
 
 def gram_bound_ms(N: int, B: int, C: int) -> tuple[float, str]:
@@ -157,13 +168,19 @@ def physically_consistent(idf) -> bool:
     return True
 
 
-KERNEL_SHAPES = [  # (name, N, B, C)
-    ("structural_B1_M14000_C80", 14000, 1, 80),
-    ("per_channel_B7_N2000_C82", 2000, 7, 82),
-    ("per_channel_B7_N60000_C82", 60000, 7, 82),
-    ("humanoid30_B30_N13770_C342", 13770, 30, 342),
-    ("ragged_M1037_C37", 1037, 1, 37),
+# (name, N, B, C, on the main path). The per-channel site runs in chunks
+# of gramChunk = 4096 samples: N=2000 is one chunk, N=60 000 is 14 chunks
+# of 4096 and a tail of 2656. The extra shapes are run by no path here.
+KERNEL_SHAPES = [
+    ("structural_B1_M14000_C80", 14000, 1, 80, True),
+    ("per_channel_B7_N2000_C82", 2000, 7, 82, True),
+    ("per_channel_chunk_B7_N4096_C82", 4096, 7, 82, True),
+    ("per_channel_tail_B7_N2656_C82", 2656, 7, 82, True),
+    ("extra_one_call_B7_N60000_C82", 60000, 7, 82, False),
+    ("extra_humanoid30_B30_N13770_C342", 13770, 30, 342, False),
+    ("extra_ragged_M1037_C37", 1037, 1, 37, False),
 ]
+PER_CHANNEL_ROWS = {N for _, N, B, C, on_path in KERNEL_SHAPES if on_path and (B, C) == (7, 82)}
 
 
 def kernel_input(gen, name: str, N: int, B: int, C: int):
@@ -172,7 +189,7 @@ def kernel_input(gen, name: str, N: int, B: int, C: int):
     wrapper's copy."""
     import torch
 
-    width = C if name.startswith("ragged") else C + (-C % 4)
+    width = C if "ragged" in name else C + (-C % 4)
     return torch.randn((N, B, width), generator=gen, device="cuda", dtype=torch.float32)[..., :C]
 
 
@@ -182,7 +199,7 @@ def phase_kernels(gram) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     out = {}
-    for name, N, B, C in KERNEL_SHAPES:
+    for name, N, B, C, on_path in KERNEL_SHAPES:
         Y = kernel_input(gen, name, N, B, C)
         before = gram.launches
         Gk = gram.gram_batched(Y)
@@ -197,9 +214,9 @@ def phase_kernels(gram) -> dict:
         ms = event_times_ms(lambda: gram.gram_batched(Y))
         plain_ms = event_times_ms(lambda: gram.gram_plain(Y))
         bound, bound_by = gram_bound_ms(N, B, C)
-        out[name] = dict(N=N, B=B, C=C, row_stride=Y.stride(0), rel_err=rel, max_abs_err=abs_err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_us=bound * 1e3,
-                         bound_by=bound_by)
+        out[name] = dict(N=N, B=B, C=C, on_main_path=on_path, row_stride=Y.stride(0),
+                         rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_us=bound * 1e3, bound_by=bound_by)
         emit("kernel_vs_plain", shape=name, **out[name])
     return out
 
@@ -213,7 +230,7 @@ def phase_device_times(gram, kern: dict) -> None:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    for name, N, B, C in KERNEL_SHAPES:
+    for name, N, B, C, _ in KERNEL_SHAPES:
         Y = kernel_input(gen, name, N, B, C)
         k1, k_names = device_ms(lambda: gram.gram_batched(Y))
         l1, l_names = device_ms(lambda: gram.gram_plain(Y))
@@ -245,6 +262,8 @@ def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
     t_init = time.perf_counter() - t0
     structural_launches = gram.launches - start
     samples = build_samples(idf.model, n)
+    chunk = int(opt["gramChunk"])
+    chunk_rows = sorted({min(chunk, n - s0) for s0 in range(0, n, chunk)})
     walls, launches_per_pass = [], []
     for _ in range(1 + warm):
         before = gram.launches
@@ -269,6 +288,7 @@ def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
         sdp_status=idf.sdp.last_status, sdp_info=idf.sdp.last_info,
         G_rows_device=str(m.G_rows.device),
         structural_launches=structural_launches, launches_per_pass=launches_per_pass,
+        chunk_rows=chunk_rows,
         xBase=m.xBase.tolist(),
     )
     emit(label, **{k: v for k, v in res.items() if k != "xBase"})
@@ -280,7 +300,10 @@ def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
     if device == "cuda":
         if cache_miss:
             check(structural_launches > 0, f"{label}: no Gram launch in _random_gram")
-        check(min(launches_per_pass) > 0, f"{label}: no Gram launch in the streamed pass")
+        check(all(k == -(-n // chunk) for k in launches_per_pass),
+              f"{label}: {launches_per_pass} Gram launches per pass, not one per chunk")
+        check(set(chunk_rows) <= PER_CHANNEL_ROWS,
+              f"{label}: chunks of {chunk_rows} rows, not all checked in phase 2")
     return res
 
 
@@ -339,22 +362,26 @@ def main() -> int:
           "the JAX package flobaroid_tpu was imported")
 
     phase_device_times(gram, kern)
-    main_shape = kern["per_channel_B7_N2000_C82"]
+    # the shape the main path launches most: N=60 000's 4096-sample chunk.
+    # ms / plain_ms: CUDA-event time of one call (host included) of the
+    # kernel / of the plain version; device_ms / library_ms: torch.profiler
+    # device time of the kernel / of the library call. gram_plain is the
+    # einsum, so the plain version and the library call are one call.
+    main_shape = kern["per_channel_chunk_B7_N4096_C82"]
     print(json.dumps({"kernels": [{
         "name": "gram_batched",
         "route": "cuda",
         "source": "flobaroid_tpu_torch/csrc/gram.cu",
         "replaces": "flobaroid_tpu/ops/gram.py:48",
         "launches": total_launches,
-        "shape": "2000x7x82",
+        "shape": "4096x7x82",
         "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["device_ms"],
-        # the plain version is the library call (gram_plain is the einsum)
-        "plain_ms": main_shape["library_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_us": main_shape["bound_us"],
-        "bound_by": main_shape["bound_by"],
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "device_ms": main_shape["device_ms"],
         "library_ms": main_shape["library_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -700,8 +700,6 @@ class Model:
                         blocks.append(torch.diag_embed(
                             torch.exp(-dq.abs() / stribeck) * torch.sign(dq)))
                 Y = cat_padded([Y, *blocks])
-            else:
-                Y = cat_padded([Y])
             G += gram_batched(Y.reshape(c * nd, 1, P)).double()
         return G[0].cpu().numpy()
 

@@ -1,19 +1,17 @@
-"""Check and time the port's Gram kernel (flobaroid_tpu_torch/csrc/gram.cu)
-on one NVIDIA card, beyond what chip_smoke.py covers.
+"""Sweep the row-split count of the port's Gram kernel
+(flobaroid_tpu_torch/csrc/gram.cu) on one NVIDIA card, to calibrate the
+planner constants in flobaroid_tpu_torch/ops/gram.py (_BLOCK_COST,
+_SPLIT_COST). chip_smoke.py checks and times the kernel as the wrapper
+launches it; this tool calls the kernel directly with each split count.
 
 Run from the repository root on a machine with a Hopper card:
 
     python3 tools/gram_kernel_sweep.py
 
-Part 1 builds the kernel, prints ptxas's register and serialization
-notes, and for each shape, both as a contiguous tensor (copied to a
-padded buffer by the wrapper when C is not a multiple of 4) and as the
-Gram sites' padded view: the error against the plain version in f64,
-bitwise reproducibility, symmetry, the launch plan, and CUDA-event ms
-per call over 20 calls of the kernel and of the plain einsum. Part 2
-sweeps the row-split count at the main shapes (the kernel called
-directly with each split count; event ms per call over 50 calls), to
-calibrate the wrapper's planner. One JSON line per result.
+It builds the kernel, prints ptxas's register and serialization notes,
+then for each shape one JSON line: the planner's split count and, for
+each split count tried, CUDA-event µs per call over 50 calls and the
+error against the plain version in f64.
 """
 
 from __future__ import annotations
@@ -40,25 +38,6 @@ def event_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
-
-
-def check_shapes(gen) -> None:
-    for N, B, C in [(5, 3, 1), (1037, 1, 37), (64, 2, 9), (14000, 1, 80), (2000, 7, 82),
-                    (4096, 7, 82), (300, 2, 120), (60000, 7, 82), (777, 2, 200),
-                    (13770, 30, 342)]:
-        for padded in (False, True):
-            width = C + (-C % 4) if padded else C
-            Y = torch.randn((N, B, width), generator=gen, device="cuda")[..., :C]
-            Gk = gram.gram_batched(Y)
-            G64 = gram.gram_plain(Y.double())
-            rel = float((Gk.double() - G64).abs().max() / G64.abs().max())
-            print(json.dumps(dict(
-                N=N, B=B, C=C, padded=padded, rel=rel,
-                reproducible=torch.equal(Gk, gram.gram_batched(Y)),
-                symmetric=torch.equal(Gk, Gk.transpose(1, 2)),
-                plan=gram._plan(N, B, C, gram._sm_count(0))._asdict(),
-                ms=event_ms(lambda: gram.gram_batched(Y), 20),
-                einsum_ms=event_ms(lambda: gram.gram_plain(Y), 20))), flush=True)
 
 
 def sweep_splits(gen) -> None:
@@ -107,7 +86,6 @@ def main() -> int:
             print(line.strip())
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    check_shapes(gen)
     sweep_splits(gen)
     return 0
 

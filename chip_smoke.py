@@ -9,25 +9,36 @@ exits non-zero, printing no result):
   0. device: torch/CUDA versions and the card's name and power limit;
   1. build: compiles the Gram kernel (csrc/gram.cu) from the checkout;
   2. kernel vs plain: the Gram kernel against the plain PyTorch version
-     (computed in f64 on the same inputs) at every shape the main path
-     sends it (the structural Gram, and the per-channel chunks of 2000,
-     4096 and the 2656-sample tail of 60 000) and at three extra shapes
-     no path of this slice runs (60 000 rows in one call, the widest
-     Gram the repository uses, a ragged C), each Y laid out as the Gram
-     sites build it (rows padded to 16 bytes; the ragged shape is
-     contiguous and goes through the wrapper's copy); tolerance 1e-5 of
-     max|G|, bitwise reproducible, one launch per call; CUDA-event times
-     of one call of the kernel and of the plain f32 version, and the
-     least time the card could take (bytes or operations);
+     (computed in f64 on the same inputs) at every shape a path of this
+     script sends it (the arm's structural Gram and per-channel chunks
+     of 2000, 4096 and the 2656-sample tail of 60 000; humanoid30's
+     structural Gram, its 4096-sample walking chunk, the 1482-sample tail
+     of 13 770 and the 1200-sample card-vs-CPU run) and at two extra
+     shapes no path runs (60 000 rows in one call, a ragged C), each Y
+     laid out as the Gram sites build it (rows padded to 16 bytes; the
+     ragged shape is contiguous and goes through the wrapper's copy);
+     tolerance 1e-5 of max|G|, bitwise reproducible, one launch per
+     call; CUDA-event times of one call of the kernel and of the plain
+     f32 version, and the least time the card could take (bytes or
+     operations);
   3. main path, bench-equivalent (bench.py's headline): the 7-DOF arm,
      2000 random states, simulate -> streamed per-channel Grams -> OLS ->
      physically consistent SDP -> reporting, one cold and 5 warm passes,
-     held to the bench's gates; the kernel's launch count must rise in
-     both Gram sites (structural and per-channel), once per chunk of
-     samples, and every chunk must be a shape phase 2 checked;
-  4. the same at 60 000 states (a 5-minute log at 200 Hz);
+     held to the bench's gates; then the same at 60 000 states (a
+     5-minute log at 200 Hz), one cold and 2 warm passes. The kernel's
+     launch count must rise in both Gram sites (structural and
+     per-channel), once per chunk of samples, and every launch must be
+     at a shape phase 2 checked;
+  4. walking leg (bench.py's second leg): humanoid30 (30 DOF, floating
+     base, two foot contacts, P = 430), first a structural cache miss
+     (one launch at 72 000 x 1 x 430, rank 310), then the walking
+     scenario of 13 770 samples generated on the card and identified
+     with bench.py's options on the checked-in cache, one cold and 3
+     warm passes, held to BENCH_r05's accuracy (torque residual, base
+     distance, base cond, SDP optimal) and to 4 launches per pass;
   5. the port on the card against the port on the CPU (plain versions)
-     on the checked-in structural cache, so both use one projection; the
+     on the checked-in structural caches, so both use one projection:
+     the arm at 2000 states and humanoid30 walking at 1200; the
      structural rank found on the card (phases 3-4, cache misses) must
      equal the CPU run's;
   6. device times from torch.profiler of the kernel and of the library
@@ -46,11 +57,13 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARM_URDF = os.path.join(REPO, "examples", "models", "sevenlink_arm.urdf")
+H30_URDF = os.path.join(REPO, "examples", "models", "humanoid30.urdf")
 GRAM_TOL = 1e-5  # max|G_kernel - G_f64| / max|G_f64| (split-TF32 tensor cores, f64 split sums)
 # published peaks of the NVIDIA H100 SXM (data sheet, 700 W): HBM3 bytes/s,
 # dense TF32 tensor-core FLOP/s (the fastest unit an f32-accurate Gram can use)
@@ -62,6 +75,18 @@ BENCH_OPTIONS = dict(
     constrainToConsistent=1, limitOverallMass=1, limitMassRange=1.0,
     limitMassToApriori=1, limitMassAprioriBoundary=0.3, verbose=0,
 )
+WALK_OPTIONS = dict(  # bench.py:90-98
+    floatingBase=1, identifyFrictionSimultaneously=1, identifySymmetricVelFriction=1,
+    constrainToConsistent=1, limitOverallMass=1, limitMassRange=5.0,
+    limitMassToApriori=1, limitMassAprioriBoundary=0.5,
+    cadRegularizationMode="observability", useStructuralRegressor=1, randomSamples=2000,
+    materializeRegressor=0, estimateWith="std", verbose=0,
+)
+WALK_N = 13770
+# the JAX package's accuracy on this leg (BENCH_r05, 13 770 samples)
+WALK_RES_ERROR_PCT = 0.1002
+WALK_BASE_COND = 489.8
+H30_RANK = 310  # rank of the checked-in structural cache
 
 
 def emit(phase: str, **fields) -> None:
@@ -97,6 +122,19 @@ def build_samples(model, n: int, freq: float = 200.0) -> dict:
         "times": np.arange(n) / freq,
         "frequency": np.array(freq),
     }
+
+
+def walking_samples(model, n: int) -> dict:
+    """bench.py's walking scenario (seed 0, its noise levels), generated
+    by the port on the model's device."""
+    from flobaroid_tpu_torch.simulation.scenarios import walking_contact_scenario
+
+    t0 = time.perf_counter()
+    samples, _, _ = walking_contact_scenario(
+        model, N=n, freq=200.0, seed=0, torque_noise=0.05, wrench_noise=0.5)
+    emit("walking_scenario", n_samples=n, device=str(model.device),
+         seconds=time.perf_counter() - t0)
+    return samples
 
 
 def event_times_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -168,19 +206,27 @@ def physically_consistent(idf) -> bool:
     return True
 
 
-# (name, N, B, C, on the main path). The per-channel site runs in chunks
-# of gramChunk = 4096 samples: N=2000 is one chunk, N=60 000 is 14 chunks
-# of 4096 and a tail of 2656. The extra shapes are run by no path here.
+# (name, N, B, C, run by a path of this script). The per-channel site
+# runs in chunks of gramChunk = 4096 samples, B = output channels, C = the
+# identified columns with tau and the contact column appended: the arm's
+# N=2000 is one chunk of 7 x 82, its N=60 000 14 chunks of 4096 and a tail
+# of 2656; humanoid30's walking N=13 770 is 3 chunks of 4096 x 36 x 432
+# and a tail of 1482, its card-vs-CPU N=1200 one chunk. The structural
+# Gram is one B=1 launch of 2000 random states x rows: 14 000 x 80 (arm),
+# 72 000 x 430 (humanoid30). The extra shapes are run by no path here.
 KERNEL_SHAPES = [
     ("structural_B1_M14000_C80", 14000, 1, 80, True),
     ("per_channel_B7_N2000_C82", 2000, 7, 82, True),
     ("per_channel_chunk_B7_N4096_C82", 4096, 7, 82, True),
     ("per_channel_tail_B7_N2656_C82", 2656, 7, 82, True),
+    ("walking_structural_B1_M72000_C430", 72000, 1, 430, True),
+    ("walking_chunk_B36_N4096_C432", 4096, 36, 432, True),
+    ("walking_tail_B36_N1482_C432", 1482, 36, 432, True),
+    ("walking_cmp_B36_N1200_C432", 1200, 36, 432, True),
     ("extra_one_call_B7_N60000_C82", 60000, 7, 82, False),
-    ("extra_humanoid30_B30_N13770_C342", 13770, 30, 342, False),
     ("extra_ragged_M1037_C37", 1037, 1, 37, False),
 ]
-PER_CHANNEL_ROWS = {N for _, N, B, C, on_path in KERNEL_SHAPES if on_path and (B, C) == (7, 82)}
+CHECKED_SHAPES = {(N, B, C) for _, N, B, C, on_path in KERNEL_SHAPES if on_path}
 
 
 def kernel_input(gen, name: str, N: int, B: int, C: int):
@@ -245,25 +291,37 @@ def phase_device_times(gram, kern: dict) -> None:
         emit("kernel_device_time", shape=name, **times)
 
 
+def base_cond(model) -> float | None:
+    """cond2 of the base regressor, sqrt(cond2) of the streamed base Gram
+    over its positive eigenvalues (as bench.py computes it)."""
+    Gb = getattr(model, "G_base", None)
+    if Gb is None:
+        return None
+    ev = np.linalg.eigvalsh(np.asarray(Gb, dtype=float))
+    pos = ev[ev > 0]
+    return float(np.sqrt(pos.max() / pos.min())) if len(pos) else None
+
+
 def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
-                  opt_overrides: dict | None = None, cache_miss: bool = True) -> dict:
+                  opt_overrides: dict | None = None, cache_miss: bool = True,
+                  options: dict = BENCH_OPTIONS, make_samples=build_samples) -> dict:
     """Identification(opt, urdf, device).estimateParameters(): one cold
     pass, then `warm` passes on the same object, held to bench.py's gates.
-    Launch counts are the kernel launches made within this call."""
+    Launch counts and shapes are the kernel launches made within this
+    call."""
     import torch
 
     from flobaroid_tpu_torch.identification.identifier import Identification
     from flobaroid_tpu_torch.utils.config import load_config
 
-    opt = load_config(None, overrides={**BENCH_OPTIONS, **(opt_overrides or {})})
-    start = gram.launches
+    opt = load_config(None, overrides={**options, **(opt_overrides or {})})
+    start, start_shapes = gram.launches, Counter(gram.launch_shapes)
     t0 = time.perf_counter()
     idf = Identification(dict(opt), urdf, device=device)
     t_init = time.perf_counter() - t0
     structural_launches = gram.launches - start
-    samples = build_samples(idf.model, n)
+    samples = make_samples(idf.model, n)
     chunk = int(opt["gramChunk"])
-    chunk_rows = sorted({min(chunk, n - s0) for s0 in range(0, n, chunk)})
     walls, launches_per_pass = [], []
     for _ in range(1 + warm):
         before = gram.launches
@@ -274,6 +332,7 @@ def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
             torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launches_per_pass.append(gram.launches - before)
+    shapes = gram.launch_shapes - start_shapes
     m = idf.model
     xb_err = float(np.linalg.norm(m.xBase - m.xBaseModel) / np.linalg.norm(m.xBaseModel))
     w = walls[1:]
@@ -282,13 +341,14 @@ def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
         init_s=t_init, cold_s=walls[0], warm_s=w,
         warm_min_s=min(w) if w else None, warm_mean_s=float(np.mean(w)) if w else None,
         warm_max_s=max(w) if w else None,
+        rows_per_s=n * m.N_OUT / min(w) if w else None,
         stage_times_s=idf.stage_times, num_base_params=m.num_base_params,
-        res_error_pct=float(idf.res_error), base_param_rel_err=xb_err,
+        res_error_pct=float(idf.res_error), base_param_rel_err=xb_err, base_cond=base_cond(m),
         physically_consistent=physically_consistent(idf),
         sdp_status=idf.sdp.last_status, sdp_info=idf.sdp.last_info,
         G_rows_device=str(m.G_rows.device),
         structural_launches=structural_launches, launches_per_pass=launches_per_pass,
-        chunk_rows=chunk_rows,
+        launch_shapes=sorted([*k, c] for k, c in shapes.items()),
         xBase=m.xBase.tolist(),
     )
     emit(label, **{k: v for k, v in res.items() if k != "xBase"})
@@ -302,9 +362,75 @@ def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
             check(structural_launches > 0, f"{label}: no Gram launch in _random_gram")
         check(all(k == -(-n // chunk) for k in launches_per_pass),
               f"{label}: {launches_per_pass} Gram launches per pass, not one per chunk")
-        check(set(chunk_rows) <= PER_CHANNEL_ROWS,
-              f"{label}: chunks of {chunk_rows} rows, not all checked in phase 2")
+        check(set(shapes) <= CHECKED_SHAPES,
+              f"{label}: launches at {sorted(shapes)}, not all checked in phase 2")
     return res
+
+
+def copy_urdf(src: str, dst_dir: str, with_cache: bool) -> str:
+    os.makedirs(dst_dir, exist_ok=True)
+    urdf = os.path.join(dst_dir, os.path.basename(src))
+    shutil.copy(src, urdf)
+    if with_cache:
+        shutil.copy(src + ".regressor.npz", urdf + ".regressor.npz")
+    return urdf
+
+
+def run_walking_leg(gram, tmp: str) -> dict:
+    """Phase 4: a humanoid30 structural cache miss on the card, then
+    bench.py's second leg on the checked-in cache."""
+    import torch
+
+    from flobaroid_tpu_torch.identification.identifier import Identification
+    from flobaroid_tpu_torch.utils.config import load_config
+
+    urdf = copy_urdf(H30_URDF, os.path.join(tmp, "walk_miss"), with_cache=False)
+    before, before_shapes = gram.launches, Counter(gram.launch_shapes)
+    t0 = time.perf_counter()
+    model = Identification(load_config(None, overrides=WALK_OPTIONS), urdf, device="cuda").model
+    torch.cuda.synchronize()
+    shapes = gram.launch_shapes - before_shapes
+    miss = dict(seconds=time.perf_counter() - t0, launches=gram.launches - before,
+                launch_shapes=sorted([*k, c] for k, c in shapes.items()),
+                num_base_params=model.num_base_params,
+                gram_dtype=np.dtype(model._structural_gram_dtype).name)
+    emit("walking_structural_miss", **miss)
+    check(dict(shapes) == {(72000, 1, 430): 1},
+          f"walking structural miss: launches {dict(shapes)}, not one at 72000x1x430")
+    check(model.num_base_params == H30_RANK,
+          f"walking structural miss: rank {model.num_base_params} on the card, not {H30_RANK}")
+
+    urdf = copy_urdf(H30_URDF, os.path.join(tmp, "walk"), with_cache=True)
+    res = run_main_path(gram, urdf, WALK_N, 3, "cuda", "walking_N13770", cache_miss=False,
+                        options=WALK_OPTIONS, make_samples=walking_samples)
+    check(res["structural_launches"] == 0, "walking: the checked-in cache was not used")
+    check(res["num_base_params"] == H30_RANK, f"walking: rank {res['num_base_params']}")
+    check(all(k == 4 for k in res["launches_per_pass"]),
+          f"walking: {res['launches_per_pass']} launches per pass, not 4")
+    dres = abs(res["res_error_pct"] - WALK_RES_ERROR_PCT)
+    check(dres <= 0.005, f"walking: torque residual {res['res_error_pct']} % is {dres} "
+                         f"percentage points from {WALK_RES_ERROR_PCT}")
+    check(res["base_param_rel_err"] < 1e-3,
+          f"walking: base distance {res['base_param_rel_err']} >= 1e-3")
+    check(res["base_cond"] is not None and abs(res["base_cond"] / WALK_BASE_COND - 1) <= 0.02,
+          f"walking: base cond {res['base_cond']} not within 2 % of {WALK_BASE_COND}")
+    return res
+
+
+def compare_cuda_cpu(gram, label: str, tol: float, **kw) -> dict:
+    """The same identify on the card and on the CPU: xBase within `tol`
+    relative, the same SDP status."""
+    rg = run_main_path(gram, device="cuda", label=f"{label}_cuda", **kw)
+    rc = run_main_path(gram, device="cpu", label=f"{label}_cpu", **kw)
+    xg, xc = np.asarray(rg["xBase"]), np.asarray(rc["xBase"])
+    out = dict(xBase_rel_diff=float(np.linalg.norm(xg - xc) / np.linalg.norm(xc)),
+               res_error_diff_pct_points=abs(rg["res_error_pct"] - rc["res_error_pct"]),
+               sdp_status=[rg["sdp_status"], rc["sdp_status"]],
+               num_base_params=rc["num_base_params"])
+    emit(label, **out)
+    check(out["xBase_rel_diff"] <= tol, f"{label}: xBase rel diff {out['xBase_rel_diff']}")
+    check(rg["sdp_status"] == rc["sdp_status"], f"{label}: sdp status")
+    return out
 
 
 def main() -> int:
@@ -331,57 +457,66 @@ def main() -> int:
 
     tmp = tempfile.mkdtemp(prefix="flobaroid_chip_smoke_")
     try:
+        # phase 3: the arm; each path's launches are counted from 0
         gram.launches = 0
         card_ranks = {}
         for label, n, warm in (("main_path_N2000", 2000, 5), ("main_path_N60000", 60000, 2)):
-            urdf = os.path.join(tmp, f"{label}.urdf")
-            shutil.copy(ARM_URDF, urdf)  # structural cache miss: _random_gram runs
+            urdf = copy_urdf(ARM_URDF, os.path.join(tmp, label), with_cache=False)
             card_ranks[label] = run_main_path(gram, urdf, n, warm, "cuda", label)["num_base_params"]
-        total_launches = gram.launches
+        arm_launches = gram.launches
+        # phase 4: the walking leg
+        gram.launches = 0
+        run_walking_leg(gram, tmp)
+        walk_launches = gram.launches
+
+        # phase 5: the port on the card vs on the CPU, both on the
+        # checked-in caches (the arm's randomSamples=600 hits it), so both
+        # use one structural projection
+        arm = compare_cuda_cpu(gram, "cuda_vs_cpu", 1e-4, urdf=ARM_URDF, n=2000, warm=0,
+                               opt_overrides=dict(randomSamples=600), cache_miss=False)
+        check(arm["res_error_diff_pct_points"] <= 1e-3,
+              f"cuda vs cpu res_error diff {arm['res_error_diff_pct_points']}")
+        for label, rank in card_ranks.items():
+            check(rank == arm["num_base_params"],
+                  f"{label}: structural rank {rank} on the card, {arm['num_base_params']} on the CPU")
+        # humanoid30 walking at 1200 samples, generated once on the card
+        walk_samples = {}
+
+        def card_walk_samples(model, n):
+            if "s" not in walk_samples:
+                walk_samples["s"] = walking_samples(model, n)
+            return walk_samples["s"]
+
+        compare_cuda_cpu(gram, "walking_cuda_vs_cpu", 1e-3,
+                         urdf=copy_urdf(H30_URDF, os.path.join(tmp, "walk_cmp"), with_cache=True),
+                         n=1200, warm=0, cache_miss=False, options=WALK_OPTIONS,
+                         make_samples=card_walk_samples)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-
-    # the port on the card vs on the CPU, both on the checked-in cache
-    # (randomSamples=600 hits it, so both use one structural projection)
-    same = dict(opt_overrides=dict(randomSamples=600), cache_miss=False)
-    rg = run_main_path(gram, ARM_URDF, 2000, 0, "cuda", "cuda_vs_cpu_cuda", **same)
-    rc = run_main_path(gram, ARM_URDF, 2000, 0, "cpu", "cuda_vs_cpu_cpu", **same)
-    xg, xc = np.asarray(rg["xBase"]), np.asarray(rc["xBase"])
-    dx = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
-    dres = abs(rg["res_error_pct"] - rc["res_error_pct"])
-    emit("cuda_vs_cpu", xBase_rel_diff=dx, res_error_diff_pct_points=dres,
-         sdp_status=[rg["sdp_status"], rc["sdp_status"]])
-    check(dx <= 1e-4, f"cuda vs cpu xBase rel diff {dx}")
-    check(rg["sdp_status"] == rc["sdp_status"], "cuda vs cpu sdp status")
-    check(dres <= 1e-3, f"cuda vs cpu res_error diff {dres}")
-    for label, rank in card_ranks.items():
-        check(rank == rc["num_base_params"],
-              f"{label}: structural rank {rank} on the card, {rc['num_base_params']} on the CPU")
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "flobaroid_tpu" or m.startswith("flobaroid_tpu.") for m in sys.modules),
           "the JAX package flobaroid_tpu was imported")
 
     phase_device_times(gram, kern)
-    # the shape the main path launches most: N=60 000's 4096-sample chunk.
+    # headline: the shape with the most kernel time per pass, the walking
+    # leg's 4096-sample chunk; by_shape: every shape a path runs.
     # ms / plain_ms: CUDA-event time of one call (host included) of the
     # kernel / of the plain version; device_ms / library_ms: torch.profiler
     # device time of the kernel / of the library call. gram_plain is the
     # einsum, so the plain version and the library call are one call.
-    main_shape = kern["per_channel_chunk_B7_N4096_C82"]
+    keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "library_ms", "bound_ms", "bound_by")
+    main_shape = kern["walking_chunk_B36_N4096_C432"]
     print(json.dumps({"kernels": [{
         "name": "gram_batched",
         "route": "cuda",
         "source": "flobaroid_tpu_torch/csrc/gram.cu",
         "replaces": "flobaroid_tpu/ops/gram.py:48",
-        "launches": total_launches,
-        "shape": "4096x7x82",
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "device_ms": main_shape["device_ms"],
-        "library_ms": main_shape["library_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
+        "launches": arm_launches + walk_launches,
+        "launches_by_path": {"arm": arm_launches, "walking": walk_launches},
+        "shape": "4096x36x432",
+        **{k: main_shape[k] for k in keys},
+        "by_shape": {name: {k: r[k] for k in keys} for name, r in kern.items()
+                     if r["on_main_path"]},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,16 +18,18 @@ import numpy as np
 
 
 def state_from_jax_model(m) -> dict[str, np.ndarray]:
-    """State dict of a flobaroid_tpu Model: xStdModel, identified_params,
-    Pb, Pd, K, B/Binv (when the model uses a basis projection),
-    num_base_params, the structural R (Gram), Q, RQ, PQ of its pivoted
-    QR, and gdt (the precision its rank threshold assumed)."""
+    """State dict of a flobaroid_tpu Model: fb (6 for a floating base, 0
+    for a fixed one), xStdModel, identified_params, Pb, Pd, K, B/Binv
+    (when the model uses a basis projection), num_base_params, the
+    structural R (Gram), Q, RQ, PQ of its pivoted QR, and gdt (the
+    precision its rank threshold assumed)."""
     Q, RQ, PQ = (np.asarray(a) for a in (m.Q, m.R, m.P))
     # the Gram from its pivoted QR: R[:, PQ] = Q @ RQ
     gram = np.empty_like(Q @ RQ)
     gram[:, PQ] = Q @ RQ
     gdt = getattr(m, "_structural_gram_dtype", m._gram_dtype)
     d = dict(
+        fb=np.asarray(m.fb),
         xStdModel=np.asarray(m.xStdModel, dtype=float),
         identified_params=np.asarray(m.identified_params, dtype=np.int64),
         Pb=np.asarray(m.Pb), Pd=np.asarray(m.Pd), K=np.asarray(m.K),

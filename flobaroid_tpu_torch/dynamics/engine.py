@@ -341,6 +341,40 @@ class DynamicsEngine:
         return self.inverse_dynamics_batch(
             pi, q[None], dq[None], ddq[None], *b, floating=floating)[0]
 
+    # ------------------------------------------------------------------
+    # derived quantities
+    # ------------------------------------------------------------------
+    def frame_jacobian(self, link_index: int, Q, base_rot=None):
+        """Mixed free-floating Jacobians (N, 6, 6+n) of one link frame:
+        rows [linear; angular] in world coords at the frame origin,
+        columns [mixed base velocity; joint velocities]. Q: (N, n),
+        base_rot: (N, 3, 3) world_R_base or None (identity)."""
+        c = self._c(Q.dtype, Q.device)
+        N = Q.shape[0]
+        kw = dict(dtype=Q.dtype, device=Q.device)
+        Rw, pw = self.fk(Q)
+        if base_rot is not None:
+            pw = (base_rot[:, None] @ pw[..., None])[..., 0]
+            Rw = base_rot[:, None] @ Rw
+        pf = pw[:, link_index]  # (N, 3)
+        dl = c["dl"]
+        ax_w = (Rw[:, dl] @ c["axis_dl"][..., None])[..., 0]  # (N, m, 3)
+        is_rev = c["is_rev_dl"]  # (m, 1)
+        mask = c["mask"][link_index][:, None]  # (m, 1)
+        lin = mask * (is_rev * torch.linalg.cross(ax_w, pf[:, None] - pw[:, dl])
+                      + (1.0 - is_rev) * ax_w)
+        ang = mask * (is_rev * ax_w)
+        Jq = torch.cat([lin, ang], dim=-1).transpose(1, 2)  # (N, 6, m)
+        if self.has_mimic:
+            # chain rule through q_m = mult*q[src]: columns of mimic
+            # joints fold into their source dof's column
+            Jq = Jq @ c["dof_project"].T
+        eye = torch.eye(3, **kw).expand(N, 3, 3)
+        zero = torch.zeros((N, 3, 3), **kw)
+        Jb = torch.cat([torch.cat([eye, -sp.skew(pf)], dim=2),
+                        torch.cat([zero, eye], dim=2)], dim=1)
+        return torch.cat([Jb, Jq], dim=2)
+
 
 def rpy_to_base_rot(rpy):
     """npz `base_rpy` to world_R_base (world_R_base = RPY(rpy)^T, the

@@ -3,10 +3,10 @@
 Port of flobaroid_tpu/identification/identifier.py (the counterpart of
 the reference's `Identification` class, identifier.py:41), bound to the
 port's Model and Data: the regressor and Gram work runs on the model's
-device, the estimation flow (OLS/WLS, SDP, std recovery, reporting) on
-the host in numpy. Essential parameters, the base-wrench split,
-validation and the post-identification friction refit are not ported
-yet (ROADMAP.md, queue 1) and raise NotImplementedError.
+device, the estimation flow (OLS/WLS, the base-wrench split, SDP, std
+recovery, reporting, held-out validation) on the host in numpy.
+Essential parameters and the post-identification friction refit are not
+ported yet (ROADMAP.md, queue 1) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,10 +16,15 @@ from typing import Any
 import numpy as np
 
 from ..data import Data
-from ..model import Model, not_ported
+from ..model import Model
 from ..models.urdf import load_urdf
 from ..utils import helpers
 from . import least_squares as ls
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to flobaroid_tpu_torch yet (ROADMAP.md, queue 1)")
 
 
 class Identification:
@@ -72,8 +77,7 @@ class Identification:
             if opt["identifyFrictionSimultaneously"]:
                 self.model._add_friction_from_urdf(self.xStdReal, tree_real)
 
-        if validation_file is not None:
-            raise not_ported("validation (validation_file)")
+        self.validation_file = validation_file
         self._tauEstimated: np.ndarray | None = None
         self._tau_lazy_x: np.ndarray | None = None
         self._tau_lazy_gen: int | None = None
@@ -317,7 +321,13 @@ class Identification:
             )[0]
         else:
             m.xBase = np.linalg.lstsq(YBase, tau, rcond=rcond)[0]
-            cf = m.contactForcesSum if contact_forces is None else contact_forces
+            cf = contact_forces
+            if cf is None:
+                # the contact series of the system solved: the base-wrench
+                # rows' own when that system is the one passed in
+                cf = getattr(self, "_bw_contactForcesSum", m.contactForcesSum)
+                if cf is not None and cf.shape[0] != YBase.shape[0]:
+                    cf = m.contactForcesSum
             if cf is not None and cf.shape[0] == YBase.shape[0] and np.any(cf):
                 m.xBase -= np.linalg.pinv(YBase) @ cf
 
@@ -374,12 +384,56 @@ class Identification:
             # The contact correction for W(Yx) = W(tau - cf) needs the
             # WEIGHTED cf
             W = np.tile(w_ch, self.data.num_used_samples)
-            cf_sys = None if custom_system else m.contactForcesSum
+            if custom_system:
+                cf_sys = getattr(self, "_bw_contactForcesSum", None)
+                if cf_sys is not None and cf_sys.shape[0] != YBase.shape[0]:
+                    cf_sys = None
+            else:
+                cf_sys = m.contactForcesSum
             self.identifyBaseParameters(
                 np.asarray(YBase) * W[:, None], np.asarray(tau) * W,
                 id_only=True,
                 contact_forces=None if cf_sys is None else np.asarray(cf_sys) * W,
             )
+
+    def _extractBaseWrenchRows(self):
+        """Ayusawa base-wrench-only equations + optional per-file inverse
+        noise weighting (reference identifier.py:617-681)."""
+        m = self.model
+        if m.YStd is None:
+            raise ValueError(
+                "useBaseWrenchForBaseParams needs the stacked regressor "
+                "(set materializeRegressor=1): the base-wrench row subset "
+                "cannot be sliced from streamed Grams"
+            )
+        nd, fb = m.num_dofs, 6
+        block = nd + fb
+        N = self.data.num_used_samples
+        rows = (np.arange(N)[:, None] * block + np.arange(fb)).reshape(-1)
+        YStd_bw = m.YStd[rows, :]
+        YBase_bw = YStd_bw @ (m.B if self.opt["useBasisProjection"] else m.Pb)
+        tau_bw = (m.tau if self.opt["useAPriori"] else m.torques_stack)[rows]
+        self._bw_contactForcesSum = m.contactForcesSum[rows]
+
+        fbnd = getattr(self.data, "file_boundaries", [0])
+        if self.opt.get("useTrajectoryWeighting", 0) and len(fbnd) > 2:
+            skip = int(self.opt["skipSamples"]) + 1
+            x_pre = np.linalg.lstsq(YBase_bw, tau_bw, rcond=None)[0]
+            res2d = (tau_bw - YBase_bw @ x_pre).reshape(N, fb)
+            loaded_idx = np.arange(N) * skip
+            file_idx = np.searchsorted(fbnd, loaded_idx, side="right") - 1
+            n_files = len(fbnd) - 1
+            sigma = np.ones((n_files, fb))
+            for k in range(n_files):
+                msk = file_idx == k
+                if np.count_nonzero(msk) > fb:
+                    sigma[k] = np.sqrt(np.mean(res2d[msk] ** 2, axis=0))
+            wts = np.mean(sigma) / np.maximum(sigma, 1e-12)
+            rw = wts[file_idx].reshape(-1)
+            YBase_bw = YBase_bw * rw[:, None]
+            tau_bw = tau_bw * rw
+            self._bw_contactForcesSum = self._bw_contactForcesSum * rw
+        return YBase_bw, tau_bw
 
     def getBaseParamsFromParamError(self) -> None:
         self.model.xBase += self.model.xBaseModel
@@ -429,7 +483,10 @@ class Identification:
         m.computeRegressors(self.data)
         _mark("regressor_gram")
 
-        self.identifyBaseParameters()
+        if opt["floatingBase"] and opt.get("useBaseWrenchForBaseParams", 0):
+            self.identifyBaseParameters(*self._extractBaseWrenchRows())
+        else:
+            self.identifyBaseParameters()
         _mark("ols_wls")
 
         if opt["constrainToConsistent"] and self.sdp is not None:
@@ -503,6 +560,37 @@ class Identification:
                 m.tauMeasured, self.tauEstimated
             )
         _mark("reporting")
+
+    def estimateValidationTorques(self) -> None:
+        """Predict held-out measurements with the identified params
+        (reference identifier.py:241-320), through the model's device
+        simulation."""
+        if self.validation_file is None:
+            return
+        with np.load(self.validation_file, allow_pickle=True, encoding="latin1") as f:
+            v = {k: f[k] for k in f.files}
+        m = self.model
+        params = m.xStdModel if self.opt["estimateWith"] == "urdf" else self._full_xstd()
+        # the reference pins validation subsampling to skipSamples=8
+        # regardless of the config (reference identifier.py:271-272);
+        # short validation files fall back to using every sample
+        total = v["positions"].shape[0]
+        skip = 8 + 1 if total >= 9 else 1
+        idx = np.arange(total // skip) * skip
+        sim = m.simulate_dynamics(v, idx, params)
+        tauM = np.asarray(v["torques"])[idx]
+        if self.opt["floatingBase"] and tauM.shape[1] == m.num_dofs:
+            # joint-only measurements: the base rows compare trivially
+            tauM = np.concatenate((sim[:, :6], tauM), axis=1)
+        self.tauEstimatedValidation = sim
+        self.tauMeasuredValidation = tauM
+        self.Tv = np.asarray(v["times"])[idx]
+        self.val_error = helpers.relative_error_pct(tauM, sim)
+        self.val_residual = float(np.mean(np.linalg.norm(sim - tauM, axis=1)))
+        limits = np.array([m.limits[j]["torque"] for j in m.jointNames])
+        if self.opt["floatingBase"]:
+            limits = np.concatenate([np.full(6, np.nan), limits])
+        self.val_nrms = helpers.nrms_error_pct(tauM, sim, limits)
 
     def _full_xstd(self) -> np.ndarray:
         """Expand xStd (identified columns) to the full parameter layout."""

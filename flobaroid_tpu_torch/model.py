@@ -1,21 +1,26 @@
 """Model: parameter bookkeeping, streamed Gram accumulation, QR base
-projection — the fixed-base slice of flobaroid_tpu/model.py on torch.
+projection — flobaroid_tpu/model.py on torch, fixed and floating base,
+with contact wrenches.
 
 What differs from the JAX module:
   * the per-dataset state is put on the model's device once per
     `computeRegressors` as plain tensors; every device pass (a-priori
-    simulation, Grams, residual statistics, reporting contractions) is a
-    Python loop over `gramChunk`-sample chunks that rebuilds the
-    regressor chunk (no padding, no masks, no cached regressor stack);
+    simulation, contact J^T w, Grams, residual statistics, reporting
+    contractions) is a Python loop over `gramChunk`-sample chunks that
+    rebuilds what it needs of the chunk (no padding, no masks, no cached
+    regressor stack);
   * both Gram sites — the per-channel Grams of the streamed identify and
     the structural Gram of `_random_gram` — go through the hand-written
     Gram kernel (`ops.gram.gram_batched`), each chunk's Gram in f32 and
     the sum over chunks in f64 on the device;
+  * the walking-contact pass computes the same numbers as the JAX
+    package's fused walking scan (per-channel G/g/gcf, the tau/cf square
+    sums, the a-priori residual statistics) as separate chunk loops: the
+    contact J^T w first, folded into the measured base-wrench rows on the
+    host in f64, then the Grams with tau and cf appended;
   * the structural states are drawn from a `torch.Generator` seeded 0 on
     the model's device, so the structural Gram differs in value from the
     JAX package's (its rank and column space do not).
-Floating base, contacts and the fused walking path are not ported yet
-(ROADMAP.md, queue 1) and raise NotImplementedError.
 
 Parameter layout (reference model.py:131-208): 10 inertial params per
 link [m, m*c, Ixx, Ixy, Ixz, Iyy, Iyz, Izz] about the link frame, then
@@ -32,15 +37,10 @@ import torch
 
 from .data import Data
 from .device import resolve_device, torch_dtype
-from .dynamics.engine import DynamicsEngine
+from .dynamics.engine import DynamicsEngine, rpy_to_base_rot, rpy_to_base_rot_np
 from .models.urdf import RobotTree, joint_names_from_regressor_xml, load_urdf
 from .ops.gram import cat_padded, gram_batched
 from .utils import helpers
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to flobaroid_tpu_torch yet (ROADMAP.md, queue 1)")
 
 
 def _stribeck_series(vsig, vs):
@@ -60,8 +60,6 @@ class Model:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if opt["floatingBase"]:
-            raise not_ported("floating-base identification")
         self.opt = opt
         self.urdf_file = urdf_file
 
@@ -78,7 +76,8 @@ class Model:
         self.limits = self.tree.joint_limits(use_deg=False)
         opt.setdefault("num_dofs", self.num_dofs)
 
-        self.fb = 0
+        self.fb = 6 if opt["floatingBase"] else 0
+        self.N_OUT = self.num_dofs + self.fb
 
         # parameter bookkeeping (reference model.py:131-208)
         self.num_model_params = self.num_links * 10
@@ -108,6 +107,8 @@ class Model:
         if opt["identifyGravityParamsOnly"]:
             self.num_identified_params -= len(self.inertia_params)
             self.friction_params_start = self.num_model_params - len(self.inertia_params)
+
+        self.baseNames = ["base f_x", "base f_y", "base f_z", "base m_x", "base m_y", "base m_z"]
 
         # a-priori standard params from URDF (+ friction from <dynamics>)
         self.xStdModel = np.concatenate(
@@ -172,7 +173,12 @@ class Model:
     def load_state(self, d: dict) -> None:
         """Install a-priori parameters and the structural base projection
         carried over from another model (see convert.py), so both compute
-        with an identical projection."""
+        with an identical projection. The other model must have the same
+        base (fixed or floating): its projection is of another regressor
+        otherwise."""
+        if int(d["fb"]) != self.fb:
+            raise ValueError(f"state of a model with fb={int(d['fb'])} loaded into one "
+                             f"with fb={self.fb} (floatingBase differs)")
         self.xStdModel = np.array(d["xStdModel"], dtype=float)
         self.identified_params = [int(p) for p in d["identified_params"]]
         self.Q, self.R, self.P = (np.array(d[k]) for k in ("Q", "RQ", "PQ"))
@@ -196,17 +202,31 @@ class Model:
                                device=self.device)
 
     def _gather_state(self, samples: dict, idx: np.ndarray):
+        """Host state (Q, V, A, BR, BV, BA) of the samples idx; the base
+        series are None for a fixed base. BR is world_R_base from the
+        stored `base_rpy`."""
         Q = np.asarray(samples["positions"])[idx, : self.num_dofs]
         V = np.asarray(samples["velocities"])[idx, : self.num_dofs]
         A = np.asarray(samples["accelerations"])[idx, : self.num_dofs]
         if self.opt["identifyGravityParamsOnly"]:
             V = np.zeros_like(V)
             A = np.zeros_like(A)
-        return Q, V, A
+        BR = BV = BA = None
+        if self.fb:
+            BR = rpy_to_base_rot_np(np.asarray(samples["base_rpy"])[idx])
+            BV = np.asarray(samples["base_velocity"])[idx]
+            BA = np.asarray(samples["base_acceleration"])[idx]
+            if self.opt["identifyGravityParamsOnly"]:
+                # gravity-only is a statics assumption: no base motion
+                # either, so the dropped inertia columns contribute nothing
+                BV = np.zeros_like(BV)
+                BA = np.zeros_like(BA)
+        return Q, V, A, BR, BV, BA
 
     def _friction_columns(self, samples: dict, idx: np.ndarray, V: np.ndarray):
         """Per-sample friction regressor columns (N, rows, n_fric)
-        (reference model.py:459-503); diagonal blocks in the joint rows."""
+        (reference model.py:459-503); diagonal blocks in the joint rows,
+        zero base-wrench rows."""
         opt = self.opt
         nd = self.num_dofs
         N = len(idx)
@@ -225,7 +245,8 @@ class Model:
                 vs = float(opt["stribeckVelocity"])
                 vsig = helpers.get_friction_sign_velocities(samples, opt)[idx, :nd]
                 cols.append(_stribeck_series(vsig, vs)[:, None, :] * np.eye(nd)[None, :, :])
-        return np.concatenate(cols, axis=2)  # (N, nd, n_fric)
+        F = np.concatenate(cols, axis=2)  # (N, nd, n_fric)
+        return np.concatenate([np.zeros((N, self.fb, F.shape[2])), F], axis=1)
 
     def friction_torques(self, samples: dict, idx: np.ndarray, x: np.ndarray) -> np.ndarray:
         """Analytic friction torques for parameter vector x (full layout),
@@ -260,23 +281,25 @@ class Model:
         (default: a-priori URDF params), friction included."""
         x = self.xStdModel if x is None else x
         if len(idx) == 0:
-            return np.zeros((0, self.num_dofs))
-        Q, V, A = self._gather_state(samples, idx)
+            return np.zeros((0, self.N_OUT))
+        state = self._gather_state(samples, idx)
         chunk = int(self.opt.get("gramChunk", 4096))
-        pi = self._to_dev(x[: self.num_model_params])
+        pi = x[: self.num_model_params]
         parts = []
         for s0 in range(0, len(idx), chunk):
             sl = slice(s0, s0 + chunk)
-            _, sim_c = self._batched_rows(Q[sl], V[sl], A[sl], pi=pi, sim_only=True)
+            chunk_state = [None if a is None else a[sl] for a in state]
+            _, sim_c = self._batched_rows(*chunk_state, pi=pi, sim_only=True)
             parts.append(sim_c)
         sim = torch.cat(parts).double().cpu().numpy()
-        sim += self.friction_torques(samples, idx, x)
+        sim[:, self.fb:] += self.friction_torques(samples, idx, x)
         return sim
 
-    def _batched_rows(self, Q, V, A, pi=None, sim_only=False):
+    def _batched_rows(self, Q, V, A, BR=None, BV=None, BA=None, pi=None, sim_only=False):
         """Inertial regressor blocks (N, rows, 10L) and, when pi is given,
         simulated inverse-dynamics rows (N, rows), as device tensors."""
-        Y = self.engine.regressor_batch(self._to_dev(Q), self._to_dev(V), self._to_dev(A))
+        base = [None if a is None else self._to_dev(a) for a in (BR, BV, BA)]
+        Y = self.engine.regressor_batch(self._to_dev(Q), self._to_dev(V), self._to_dev(A), *base)
         sim = None if pi is None else Y @ self._to_dev(pi)
         return (None if sim_only else Y), sim
 
@@ -291,17 +314,19 @@ class Model:
         self._agg_cache = {}  # Gram aggregates are per-dataset
         self._staged = None  # staged device inputs are per-dataset
         self._dataset_gen += 1
-        nd = self.num_dofs
-        rows = nd
+        nd, fb = self.num_dofs, self.fb
+        rows = nd + fb
         skip = int(opt["skipSamples"])
         N = data.num_used_samples
         idx = np.arange(N) * (skip + 1)
         samples = data.samples
-        if "contacts" in samples and np.asarray(samples["contacts"]).ndim == 0:
-            raise not_ported("contact-wrench identification")
 
-        Q, V, A = self._gather_state(samples, idx)
-        need_sim = opt["simulateTorques"] or opt["useAPriori"]
+        Q, V, A, BR, BV, BA = self._gather_state(samples, idx)
+        # the a-priori simulation is needed for simulated torques, for
+        # useAPriori, and to fill the 6 base-wrench rows of a floating-base
+        # dataset that carries joint torques only
+        tq_cols = np.asarray(samples["torques"]).shape[-1]
+        need_sim = opt["simulateTorques"] or opt["useAPriori"] or (fb and tq_cols < rows)
         pi_urdf = self.xStdModel[: self.num_model_params]
         streaming = not int(opt.get("materializeRegressor", 1)) and not only_simulate
         Yin = sim = None
@@ -309,18 +334,18 @@ class Model:
             # simulate through the staged chunks (Y_id @ x_id equals
             # Yin @ pi + friction: identified columns only drop inertia
             # columns in gravity-only mode, where V = A = 0 zeroes them)
-            staged = self._stage_streaming(samples, idx, Q, V, A)
+            staged = self._stage_streaming(samples, idx, Q, V, A, BR, BV, BA)
             if need_sim:
                 x_id = self.xStdModel[self.identified_params]
                 sim = np.nan_to_num(self._scan_contract(staged, [x_id])[0])
         else:
             Yin, sim = self._batched_rows(
-                Q, V, A, pi=pi_urdf if need_sim else None, sim_only=only_simulate)
+                Q, V, A, BR, BV, BA, pi=pi_urdf if need_sim else None, sim_only=only_simulate)
             if Yin is not None:
                 Yin = Yin.double().cpu().numpy()  # (N, rows, 10L)
             if sim is not None:
                 sim = sim.double().cpu().numpy()
-                sim += self.friction_torques(samples, idx, self.xStdModel)
+                sim[:, fb:] += self.friction_torques(samples, idx, self.xStdModel)
                 sim = np.nan_to_num(sim)
 
         # measured torques (a previous pass may have written back a
@@ -329,18 +354,47 @@ class Model:
         torq = np.array(tq_arr if tq_arr.shape[0] == N else tq_arr[idx])
         if opt["simulateTorques"]:
             torq = sim.copy()
-        self.contactForcesSum = np.zeros(N * rows)
+        elif fb and torq.shape[1] < rows:
+            torq = np.concatenate([sim[:, :6], torq], axis=1)
+
+        # contact wrenches -> generalized torque contributions J^T w,
+        # summed over the contact frames of the model
+        contacts_sum = np.zeros((N, rows))
+        num_contacts = 0
+        if "contacts" in samples and np.asarray(samples["contacts"]).ndim == 0:
+            cdict = samples["contacts"].item(0)
+            num_contacts = len(cdict)
+            frames = [(li, np.asarray(w)[idx]) for frame, w in cdict.items()
+                      if (li := self.tree.link_index.get(str(frame))) is not None]
+            if frames:
+                lis = [li for li, _ in frames]
+                W = np.stack([w for _, w in frames], axis=1)  # (N, F, 6)
+                cf = self._contact_chunks(
+                    lambda q, br, w: self._contact_jt_w(lis, q, br, w), Q, BR, W)
+                contacts_sum += cf[:, -rows:]
+        self.contactForcesSum = contacts_sum.reshape(-1)
+
+        if fb:
+            if opt["simulateTorques"]:
+                torq = torq + contacts_sum
+            elif not data.contacts_in_torques:
+                # the measured base rows are the net base wrench: add the
+                # contact contribution once (a second pass over the same
+                # Data finds it written back below)
+                torq[:, :6] += contacts_sum[:, :6]
 
         self.torques_stack = torq.reshape(-1)
         self.torquesAP_stack = (sim.reshape(-1) if (sim is not None and opt["useAPriori"])
                                 else np.zeros_like(self.torques_stack))
-        if opt["simulateTorques"]:
+        if num_contacts or opt["simulateTorques"]:
             # write back into a COPY of the samples dict when it still
             # aliases data.measurements (later passes must not see the
             # subsampled array as the measurement)
             if data.samples is data.measurements:
                 data.samples = dict(data.measurements)
             data.samples["torques"] = torq
+            if num_contacts and not opt["simulateTorques"]:
+                data.contacts_in_torques = True
 
         self.tau = (self.torques_stack - self.torquesAP_stack
                     if opt["useAPriori"] else self.torques_stack)
@@ -383,7 +437,9 @@ class Model:
     # ------------------------------------------------------------------
     def _identified_columns(self, Y, V, sign, vsig):
         """Identified-column assembly on the device: inertial subset +
-        friction blocks (mirrors the host path)."""
+        friction blocks (mirrors the host path: zero in the base-wrench
+        rows), in a buffer with 16-byte rows (ops.gram.cat_padded) that
+        the Gram kernel reads in place."""
         opt = self.opt
         nd = self.num_dofs
         if opt["identifyGravityParamsOnly"]:
@@ -403,22 +459,30 @@ class Model:
                 if opt.get("stribeckVelocity", 0) > 0:
                     vs = float(opt["stribeckVelocity"])
                     blocks.append(torch.diag_embed(torch.exp(-vsig.abs() / vs) * torch.sign(vsig)))
-            Y = torch.cat([Y, *blocks], dim=2)
+            F = torch.cat(blocks, dim=2)
+            if self.fb:
+                F = torch.cat([F.new_zeros((F.shape[0], self.fb, F.shape[2])), F], dim=1)
+            Y = cat_padded([Y, F])
         return Y
 
-    def _stage_streaming(self, samples, idx, Q, V, A) -> dict:
+    def _stage_streaming(self, samples, idx, Q, V, A, BR, BV, BA) -> dict:
         """Put the per-sample state on the device once per dataset; the
         simulation pass, the Gram pass and every reporting contraction
-        read it from there. Invalidated at the top of computeRegressors."""
+        read it from there. The base series are None
+        for a fixed base. Invalidated at the top of computeRegressors."""
         st = self._staged
         if st is not None and st["N"] == len(idx):
             return st
         vsig = helpers.get_friction_sign_velocities(samples, self.opt)[idx, : self.num_dofs]
-        st = dict(N=len(idx), chunk=int(self.opt.get("gramChunk", 4096)),
-                  Q=self._to_dev(Q), V=self._to_dev(V), A=self._to_dev(A),
-                  vsig=self._to_dev(vsig))
+        st = dict(N=len(idx), chunk=int(self.opt.get("gramChunk", 4096)), vsig=self._to_dev(vsig))
+        for k, a in dict(Q=Q, V=V, A=A, BR=BR, BV=BV, BA=BA).items():
+            st[k] = None if a is None else self._to_dev(a)
         self._staged = st
         return st
+
+    @staticmethod
+    def _chunk_of(st, keys, sl):
+        return [None if st[k] is None else st[k][sl] for k in keys]
 
     def _identified_chunks(self, st):
         """(slice, identified regressor chunk (n, rows, P)) over the staged
@@ -427,9 +491,36 @@ class Model:
         thresh = float(self.opt.get("frictionSignThreshold", 0.02))
         for s0 in range(0, st["N"], st["chunk"]):
             sl = slice(s0, s0 + st["chunk"])
-            V, vsig = st["V"][sl], st["vsig"][sl]
-            Y = self.engine.regressor_batch(st["Q"][sl], V, st["A"][sl])
+            Q, V, A, BR, BV, BA, vsig = self._chunk_of(
+                st, ("Q", "V", "A", "BR", "BV", "BA", "vsig"), sl)
+            Y = self.engine.regressor_batch(Q, V, A, BR, BV, BA)
             yield sl, self._identified_columns(Y, V, torch.tanh(vsig / thresh), vsig)
+
+    # ------------------------------------------------------------------
+    # contact wrenches: J^T w on the device, chunk by chunk
+    # ------------------------------------------------------------------
+    def _contact_jt_w(self, lis, Q, BR, W):
+        """sum_f J_f^T w_f, (n, 6+nd), for device tensors Q (n, nd), BR
+        (n, 3, 3) or None, W (n, F, 6) and link indices lis (F,)."""
+        return sum((W[:, f, None, :] @ self.engine.frame_jacobian(li, Q, BR))[:, 0]
+                   for f, li in enumerate(lis))
+
+    def _contact_jacobians(self, link_index: int, Q, BR) -> np.ndarray:
+        """Transposed frame Jacobians J^T, (N, 6+nd, 6), host arrays in
+        and out, computed on the device in chunks."""
+        return self._contact_chunks(
+            lambda q, br: self.engine.frame_jacobian(link_index, q, br).transpose(1, 2), Q, BR)
+
+    def _contact_chunks(self, fn, Q, BR, *rest) -> np.ndarray:
+        """fn over `gramChunk`-sample chunks of host arrays (Q, BR, *rest)
+        put on the device, concatenated back on the host in f64."""
+        chunk = int(self.opt.get("gramChunk", 4096))
+        outs = []
+        for s0 in range(0, len(Q), chunk):
+            sl = slice(s0, s0 + chunk)
+            args = [None if a is None else self._to_dev(a[sl]) for a in (Q, BR, *rest)]
+            outs.append(fn(*args))
+        return torch.cat(outs).double().cpu().numpy()
 
     def _scan_contract(self, staged, xs) -> np.ndarray:
         """(K, N, rows) torque contractions tau_hat = Y @ x_k over the
@@ -528,7 +619,7 @@ class Model:
         cache = self._resid_cache
         missing = [x for x in xs if x.tobytes() not in cache]
         if missing:
-            N, rows, K = st["N"], self.num_dofs, len(missing)
+            N, rows, K = st["N"], self.N_OUT, len(missing)
             taum = self._to_dev(self.tauMeasured)
             cf = self._to_dev(self.contactForcesSum.reshape(N, rows))
             xj = self._to_dev(np.stack(missing))
@@ -567,8 +658,8 @@ class Model:
         staged = self._staged
         if staged is None or staged["N"] != N:
             idx = np.arange(N) * (int(self.opt["skipSamples"]) + 1)
-            Q, V, A = self._gather_state(self.data.samples, idx)
-            staged = self._stage_streaming(self.data.samples, idx, Q, V, A)
+            staged = self._stage_streaming(self.data.samples, idx,
+                                           *self._gather_state(self.data.samples, idx))
         return self._scan_contract(staged, xs)
 
     # ------------------------------------------------------------------
@@ -581,7 +672,7 @@ class Model:
         opt = self.opt
         suffix = ".gravity_regressor.npz" if opt["identifyGravityParamsOnly"] else ".regressor.npz"
         regr_filename = self.urdf_file + suffix
-        fb = 0
+        fb = int(bool(self.fb))  # the cache's key: 1 for a floating base
         if not n_samples:
             n_samples = self.num_dofs * 1000
 
@@ -641,13 +732,12 @@ class Model:
     def _random_gram(self, n_samples: int) -> np.ndarray:
         """Structural Gram over `n_samples` random in-limit states, drawn
         from a torch.Generator seeded 0 on the model's device, in chunks
-        of `gramChunk` samples; each chunk's Gram (n*nd rows x P) is one
+        of `gramChunk` samples; each chunk's Gram (n*rows rows x P) is one
         B=1 launch of the Gram kernel, summed over chunks in f64."""
         opt = self.opt
         nd = self.num_dofs
         dt = self._compute_dtype()
         grav_only = bool(opt["identifyGravityParamsOnly"])
-        fric = bool(opt["identifyFrictionSimultaneously"])
 
         jn = self.jointNames
         if self.limits:
@@ -660,14 +750,7 @@ class Model:
         else:
             lo, hi, vl = -np.pi * np.ones(nd), np.pi * np.ones(nd), np.pi * np.ones(nd)
         lo, span, vl = self._to_dev(lo), self._to_dev(hi - lo), self._to_dev(vl)
-
         sign_thresh = float(opt.get("frictionSignThreshold", 0.02))
-        stribeck = float(opt.get("stribeckVelocity", 0) or 0)
-        sym = bool(opt["identifySymmetricVelFriction"])
-        keep = None
-        if grav_only:
-            keep = torch.tensor([p for p in range(self.num_model_params)
-                                 if p not in set(self.inertia_params)], device=self.device)
 
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
@@ -684,23 +767,18 @@ class Model:
             else:
                 dq = (u[1] - 0.5) * 2 * vl
                 ddq = (u[2] - 0.5) * 2 * np.pi
-            Y = self.engine.regressor_batch(q, dq, ddq)  # (c, nd, 10L)
-            if keep is not None:
-                Y = Y[:, :, keep]
-            if fric:
-                blocks = [torch.diag_embed(torch.tanh(dq / sign_thresh))]
-                if not grav_only:
-                    if sym:
-                        blocks.append(torch.diag_embed(dq))
-                    else:
-                        blocks.append(torch.diag_embed(torch.clamp(dq, min=0.0)))
-                        blocks.append(torch.diag_embed(torch.clamp(dq, max=0.0)))
-                    blocks.append(torch.eye(nd, dtype=dt, device=self.device).expand(c, nd, nd))
-                    if stribeck > 0:
-                        blocks.append(torch.diag_embed(
-                            torch.exp(-dq.abs() / stribeck) * torch.sign(dq)))
-                Y = cat_padded([Y, *blocks])
-            G += gram_batched(Y.reshape(c * nd, 1, P)).double()
+            base = ()
+            if self.fb:
+                # base velocity and acceleration uniform in [0, pi), a
+                # small base tilt (rpy uniform in [0, 0.1))
+                b = torch.rand((c, 15), generator=gen, dtype=dt, device=self.device)
+                bv, ba = np.pi * b[:, :6], np.pi * b[:, 6:12]
+                if grav_only:
+                    bv, ba = torch.zeros_like(bv), torch.zeros_like(ba)
+                base = (rpy_to_base_rot(0.1 * b[:, 12:]), bv, ba)
+            Y = self.engine.regressor_batch(q, dq, ddq, *base)  # (c, rows, 10L)
+            Y = self._identified_columns(Y, dq, torch.tanh(dq / sign_thresh), dq)
+            G += gram_batched(Y.reshape(c * self.N_OUT, 1, P)).double()
         return G[0].cpu().numpy()
 
     def computeRegressorLinDepsQR(self, regressor: np.ndarray | None = None) -> None:

@@ -17,15 +17,18 @@ into such a buffer first.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
 
-# Number of kernel launches made by gram_batched (incremented only where
-# the kernel is launched; callers reset it to observe one run).
+# Number of kernel launches made by gram_batched, and their (N, B, C)
+# shapes (both updated only where the kernel is launched; callers reset
+# them to observe one run).
 launches = 0
+launch_shapes: collections.Counter = collections.Counter()
 
 _BK = 32  # rows of Y per pipeline step of the kernel
 _MAX_ROWS = 8192  # most rows one block sums before the f64 reduction
@@ -200,6 +203,7 @@ def gram_batched(Y: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tens
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed: error {err}")
     launches += 1
+    launch_shapes[(N, B, C)] += 1
     return out
 
 

@@ -50,3 +50,12 @@ def relative_error_pct(measured: np.ndarray, estimated: np.ndarray) -> float:
     num = np.linalg.norm(measured - estimated)
     den = np.linalg.norm(measured)
     return float(100.0 * num / den) if den > 0 else float("inf")
+
+
+def nrms_error_pct(measured: np.ndarray, estimated: np.ndarray, limits: np.ndarray) -> float:
+    """RMS error normalized by the torque limit range per channel, in %."""
+    err = np.asarray(measured) - np.asarray(estimated)
+    rms = np.sqrt(np.mean(err**2, axis=0))
+    rng = 2.0 * np.asarray(limits)
+    rng = np.where(np.isfinite(rng) & (rng > 0), rng, np.max(np.abs(measured), axis=0) + 1e-12)
+    return float(100.0 * np.mean(rms / rng))

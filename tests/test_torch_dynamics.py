@@ -7,7 +7,8 @@ and floating base, N = 32. Each engine gets its tree from its own
 package's `load_urdf`. Tolerances: f64 1e-10 relative to max|Y|
 (both sides compute the same formulas in f64; differences are rounding
 order), f32 1e-5 (the port in f32 against the JAX engine in f64: f32
-rounding of the kinematic chain).
+rounding of the kinematic chain). Frame Jacobians (the walking
+contacts' J^T w) also on humanoid30, at 1e-12 in f64.
 """
 
 import glob
@@ -35,6 +36,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARM_URDF = os.path.join(REPO, "examples", "models", "sevenlink_arm.urdf")
+H30_URDF = os.path.join(REPO, "examples", "models", "humanoid30.urdf")
 N = 32
 TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
 
@@ -42,7 +44,7 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
 @pytest.fixture(scope="module")
 def robots(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_dyn")
-    out = {"arm": ARM_URDF}
+    out = {"arm": ARM_URDF, "humanoid30": H30_URDF}
     for name, text in (("simple", SIMPLE_URDF), ("mimic", MIMIC_URDF)):
         p = d / f"{name}.urdf"
         p.write_text(text)
@@ -202,3 +204,30 @@ def test_spatial_primitives_match_jax():
     ]
     for t, j in pairs:
         assert np.abs(t.numpy() - np.asarray(j)).max() < 1e-13
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("robot", ["arm", "humanoid30", "mimic"])
+@pytest.mark.parametrize("floating", [False, True], ids=["fixed", "floating"])
+def test_frame_jacobian_matches_jax(robots, robot, floating):
+    """Mixed 6 x (6+n) frame Jacobians, batched over samples, against the
+    JAX engine's single-sample one vmapped: the last link and a middle
+    one, and on humanoid30 the foot F/T frames the walking contacts use."""
+    import jax
+
+    jtree, tree = robots[robot]
+    Q, _, _, BR, _, _ = _inputs(tree, seed=6)
+    je, te = JaxEngine(jtree), DynamicsEngine(tree)
+    if robot == "humanoid30":
+        links = {tree.link_index["L_foot_ft"], tree.link_index["R_foot_ft"]}
+    else:
+        links = {tree.num_links - 1, tree.num_links // 2}
+    for li in sorted(links):
+        if floating:
+            Jj = jax.vmap(lambda q, br: je.frame_jacobian(li, q, br))(jnp.asarray(Q), jnp.asarray(BR))
+            Jt = te.frame_jacobian(li, torch.tensor(Q), torch.tensor(BR))
+        else:
+            Jj = jax.vmap(lambda q: je.frame_jacobian(li, q))(jnp.asarray(Q))
+            Jt = te.frame_jacobian(li, torch.tensor(Q))
+        assert tuple(Jt.shape) == (N, 6, 6 + tree.num_dofs)
+        assert _rel(Jt.numpy(), np.asarray(Jj)) < 1e-12, li

@@ -21,6 +21,7 @@ from flobaroid_tpu.model import Model as JaxModel
 from flobaroid_tpu.utils.config import load_config
 from flobaroid_tpu_torch.convert import state_from_jax_model
 from flobaroid_tpu_torch.data import Data
+from flobaroid_tpu_torch.identification.identifier import Identification
 from flobaroid_tpu_torch.model import Model
 from flobaroid_tpu_torch.ops import gram as tgram
 
@@ -160,15 +161,58 @@ def test_structural_rank_and_column_space(tmp_path, dtype):
         assert np.arccos(np.clip(cos, -1.0, 1.0)).max() < 1e-6
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_floating_structural_rank_and_column_space(tmp_path, dtype):
+    """The same for a floating base with friction columns: base velocity,
+    acceleration and tilt are drawn too, and the friction blocks are zero
+    in the 6 base-wrench rows. The cache is keyed fb=1."""
+    urdfs = []
+    for sub in ("jax", "torch"):
+        (tmp_path / sub).mkdir()
+        urdfs.append(str(tmp_path / sub / "arm.urdf"))
+        shutil.copy(ARM_URDF, urdfs[-1])
+    kw = dict(randomSamples=200, gramChunk=128, floatingBase=1)
+    jm = JaxModel(_opt("friction", dtype, **kw), urdfs[0])
+    tm = Model(_opt("friction", dtype, **kw), urdfs[1], device="cpu")
+    assert tm.num_base_params == jm.num_base_params == 80
+    cache = np.load(urdfs[1] + ".regressor.npz")
+    assert int(cache["fb"]) == 1 and int(cache["n"]) == 200
+    if dtype == "float64":
+        r = tm.num_base_params
+        bases = [np.linalg.eigh(np.load(u + ".regressor.npz")["R"])[1][:, -r:] for u in urdfs]
+        cos = np.linalg.svd(bases[0].T @ bases[1], compute_uv=False)
+        assert np.arccos(np.clip(cos, -1.0, 1.0)).max() < 1e-6
+
+
 def test_model_requires_a_device_and_fixed_base(arm_copy, monkeypatch):
-    # the default device is the card: without one it raises, with no CPU fallback
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        Model(_opt("inertial", "float64"), arm_copy)
+    """The default device is the card: without one it raises, with no CPU
+    fallback. A floating base is ported now; an option that stays
+    unported (the friction refit) raises, naming ROADMAP."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Model(_opt("inertial", "float64"), arm_copy)
     with pytest.raises(ValueError):
         Model(_opt("inertial", "float64"), arm_copy, device=None)
+    idf = Identification(_opt("inertial", "float64", postIdentifyFriction=1), arm_copy,
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(_opt("inertial", "float64", floatingBase=1), arm_copy, device="cpu")
+        idf.estimateParameters()
+
+
+def test_convert_carries_the_base_and_refuses_a_mismatch(arm_copy):
+    """state_from_jax_model carries fb; a fixed-base port model refuses
+    a floating-base state (its projection is of another regressor)."""
+    jm = JaxModel(_opt("inertial", "float64", floatingBase=1, randomSamples=300), arm_copy)
+    st = state_from_jax_model(jm)
+    assert int(st["fb"]) == jm.fb == 6
+    tm = Model(_opt("inertial", "float64", floatingBase=1), arm_copy, regressor_init=False,
+               device="cpu")
+    tm.load_state(st)
+    assert tm.num_base_params == jm.num_base_params
+    fixed = Model(_opt("inertial", "float64"), arm_copy, regressor_init=False, device="cpu")
+    with pytest.raises(ValueError, match="floatingBase"):
+        fixed.load_state(st)
 
 
 @pytest.mark.parametrize("case", ["inertial", "friction"])

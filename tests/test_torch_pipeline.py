@@ -122,10 +122,39 @@ def test_slice_f32_passes_the_bench_gates(arm_copy):
     assert _passes_bench_gates(t)
 
 
-def test_port_loads_neither_jax_nor_yaml(tmp_path):
-    urdf = tmp_path / "arm.urdf"
-    shutil.copy(ARM_URDF, urdf)
-    shutil.copy(ARM_URDF + ".regressor.npz", str(urdf) + ".regressor.npz")
+H30_URDF = os.path.join(REPO, "examples", "models", "humanoid30.urdf")
+WALK = dict(  # bench.py:90-98, the floating-base walking-contact identify
+    floatingBase=1, identifyFrictionSimultaneously=1, identifySymmetricVelFriction=1,
+    constrainToConsistent=1, limitOverallMass=1, limitMassRange=5.0, limitMassToApriori=1,
+    limitMassAprioriBoundary=0.5, cadRegularizationMode="observability",
+    useStructuralRegressor=1, randomSamples=2000, materializeRegressor=0,
+    estimateWith="std", verbose=0,
+)
+# the identify each case runs in the subprocess, after `idf` is built
+_LOAD_SAMPLES = {
+    "arm": """
+rng = np.random.default_rng(0)
+n, nd = 400, idf.model.num_dofs
+idf.data.init_from_data(dict(positions=rng.uniform(-1, 1, (n, nd)),
+    velocities=rng.standard_normal((n, nd)), accelerations=rng.standard_normal((n, nd)),
+    torques=np.zeros((n, nd)), times=np.arange(n) / 200.0, frequency=np.array(200.0)))
+""",
+    "walking": """
+from flobaroid_tpu_torch.simulation.scenarios import walking_contact_scenario
+samples, _, _ = walking_contact_scenario(idf.model, N=900, seed=0, torque_noise=0.05,
+                                         wrench_noise=0.5)
+idf.data.init_from_data(samples)
+""",
+}
+
+
+def _assert_port_loads_neither_jax_nor_yaml(tmp_path, case):
+    """A CPU identify in a fresh process loads no jax, no yaml and no
+    flobaroid_tpu module."""
+    src, opt = (ARM_URDF, BENCH) if case == "arm" else (H30_URDF, WALK)
+    urdf = tmp_path / os.path.basename(src)
+    shutil.copy(src, urdf)
+    shutil.copy(src + ".regressor.npz", str(urdf) + ".regressor.npz")
     code = f"""
 import sys
 import numpy as np
@@ -133,13 +162,9 @@ sys.path.insert(0, {REPO!r})
 from flobaroid_tpu_torch.convert import state_from_jax_model
 from flobaroid_tpu_torch.identification.identifier import Identification
 from flobaroid_tpu_torch.utils.config import load_config
-opt = load_config(None, overrides={BENCH!r})
+opt = load_config(None, overrides={opt!r})
 idf = Identification(opt, {str(urdf)!r}, device="cpu")
-rng = np.random.default_rng(0)
-n, nd = 400, idf.model.num_dofs
-idf.data.init_from_data(dict(positions=rng.uniform(-1, 1, (n, nd)),
-    velocities=rng.standard_normal((n, nd)), accelerations=rng.standard_normal((n, nd)),
-    torques=np.zeros((n, nd)), times=np.arange(n) / 200.0, frequency=np.array(200.0)))
+{_LOAD_SAMPLES[case]}
 idf.estimateParameters()
 assert idf.sdp.last_status.startswith("optimal"), idf.sdp.last_status
 print("jax" in sys.modules, "yaml" in sys.modules,
@@ -151,6 +176,17 @@ print("jax" in sys.modules, "yaml" in sys.modules,
                          timeout=120, env=env, cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False", "False"]
+
+
+def test_port_loads_neither_jax_nor_yaml(tmp_path):
+    _assert_port_loads_neither_jax_nor_yaml(tmp_path, "arm")
+
+
+@pytest.mark.timeout(120)
+def test_port_loads_neither_jax_nor_yaml_walking(tmp_path):
+    """The same for the floating-base humanoid30 walking-contact identify
+    (scenario generated by the port)."""
+    _assert_port_loads_neither_jax_nor_yaml(tmp_path, "walking")
 
 
 def test_config_defaults_equal_jax():

@@ -13,8 +13,9 @@ exits non-zero, printing no result):
      script sends it (the arm's structural Gram and per-channel chunks
      of 2000, 4096 and the 2656-sample tail of 60 000; humanoid30's
      structural Gram, its 4096-sample walking chunk, the 1482-sample tail
-     of 13 770 and the 1200-sample card-vs-CPU run) and at two extra
-     shapes no path runs (60 000 rows in one call, a ragged C), each Y
+     of 13 770, the 1200-sample card-vs-CPU run and the CAD study's 1000
+     samples) and at two extra shapes no path runs (60 000 rows in one
+     call, a ragged C), each Y
      laid out as the Gram sites build it (rows padded to 16 bytes; the
      ragged shape is contiguous and goes through the wrapper's copy);
      tolerance 1e-5 of max|G|, bitwise reproducible, one launch per
@@ -36,12 +37,23 @@ exits non-zero, printing no result):
      with bench.py's options on the checked-in cache, one cold and 3
      warm passes, held to BENCH_r05's accuracy (torque residual, base
      distance, base cond, SDP optimal) and to 4 launches per pass;
-  5. the port on the card against the port on the CPU (plain versions)
+  5. CAD-study leg (bench.py's third leg): the checked-in suspended
+     recording of humanoid30 (2000 samples, every second one used: N =
+     1000, 36 rows, P = 430, rank 310 on the checked-in cache) identified
+     against the CAD model with the four CAD-prior modes (uniform,
+     observability, geometric log-det, geometric with observability
+     weighting) by `run_cad_study`, a cold and a warm study on one
+     Identification, held to the JAX package's base distances of record
+     (within 3 %), bench.py's ordering, optimal statuses and one kernel
+     launch per study (the four modes share one regressor pass); the same
+     study on the CPU in f64 beside it;
+  6. the port on the card against the port on the CPU (plain versions)
      on the checked-in structural caches, so both use one projection:
      the arm at 2000 states and humanoid30 walking at 1200; the
      structural rank found on the card (phases 3-4, cache misses) must
-     equal the CPU run's;
-  6. device times from torch.profiler of the kernel and of the library
+     equal the CPU run's; the arm's essential parameters from noisy
+     torques (the same essential set from the card's f32 Grams);
+  7. device times from torch.profiler of the kernel and of the library
      call (the einsum) in turns at phase 2's shapes, and the kernel's
      share of its bound; last, so no profiler session runs before the
      main path's walls are read.
@@ -64,6 +76,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARM_URDF = os.path.join(REPO, "examples", "models", "sevenlink_arm.urdf")
 H30_URDF = os.path.join(REPO, "examples", "models", "humanoid30.urdf")
+H30_REAL_URDF = os.path.join(REPO, "examples", "models", "humanoid30_real.urdf")
+H30_CAD_RECORDING = os.path.join(REPO, "examples", "data", "humanoid30_suspended_cad.npz")
 GRAM_TOL = 1e-5  # max|G_kernel - G_f64| / max|G_f64| (split-TF32 tensor cores, f64 split sums)
 # published peaks of the NVIDIA H100 SXM (data sheet, 700 W): HBM3 bytes/s,
 # dense TF32 tensor-core FLOP/s (the fastest unit an f32-accurate Gram can use)
@@ -87,6 +101,10 @@ WALK_N = 13770
 WALK_RES_ERROR_PCT = 0.1002
 WALK_BASE_COND = 489.8
 H30_RANK = 310  # rank of the checked-in structural cache
+# the JAX package's base distances to the real model on the CAD study
+# (BENCH_r05, skipSamples=1), by CAD-prior mode
+CAD_BASE_DIST = dict(uniform=1.786, observability=1.551, geometric=1.432, geometric_obs=1.431)
+CAD_STUDY_SHAPE = (1000, 36, 432)
 
 
 def emit(phase: str, **fields) -> None:
@@ -191,19 +209,10 @@ def gram_bound_ms(N: int, B: int, C: int) -> tuple[float, str]:
 def physically_consistent(idf) -> bool:
     """PSD spatial inertia of every non-empty link of the identified
     standard parameters (the constraint the SDP enforces)."""
-    import torch
-
-    from flobaroid_tpu_torch.dynamics.spatial import inertia_matrix_from_params
+    from flobaroid_tpu_torch.utils.helpers import is_physical_consistent
 
     m = idf.model
-    x = idf._full_xstd()[: m.num_model_params].reshape(m.num_links, 10)
-    for p in x:
-        if np.all(np.abs(p) < 1e-12):
-            continue
-        ev = np.linalg.eigvalsh(inertia_matrix_from_params(torch.tensor(p)).numpy())
-        if ev[0] < -1e-10 * max(1.0, abs(ev[-1])):
-            return False
-    return True
+    return is_physical_consistent(idf._full_xstd()[: m.num_model_params], m.num_links)
 
 
 # (name, N, B, C, run by a path of this script). The per-channel site
@@ -211,7 +220,8 @@ def physically_consistent(idf) -> bool:
 # identified columns with tau and the contact column appended: the arm's
 # N=2000 is one chunk of 7 x 82, its N=60 000 14 chunks of 4096 and a tail
 # of 2656; humanoid30's walking N=13 770 is 3 chunks of 4096 x 36 x 432
-# and a tail of 1482, its card-vs-CPU N=1200 one chunk. The structural
+# and a tail of 1482, its card-vs-CPU N=1200 one chunk, the CAD study's
+# N=1000 one chunk (no contacts: the contact column is zero). The structural
 # Gram is one B=1 launch of 2000 random states x rows: 14 000 x 80 (arm),
 # 72 000 x 430 (humanoid30). The extra shapes are run by no path here.
 KERNEL_SHAPES = [
@@ -223,6 +233,7 @@ KERNEL_SHAPES = [
     ("walking_chunk_B36_N4096_C432", 4096, 36, 432, True),
     ("walking_tail_B36_N1482_C432", 1482, 36, 432, True),
     ("walking_cmp_B36_N1200_C432", 1200, 36, 432, True),
+    ("cad_study_B36_N1000_C432", *CAD_STUDY_SHAPE, True),
     ("extra_one_call_B7_N60000_C82", 60000, 7, 82, False),
     ("extra_ragged_M1037_C37", 1037, 1, 37, False),
 ]
@@ -417,6 +428,118 @@ def run_walking_leg(gram, tmp: str) -> dict:
     return res
 
 
+def run_cad_leg(gram, tmp: str) -> dict:
+    """Phase 5: bench.py's third leg, `run_cad_study` on the checked-in
+    suspended recording, a cold and a warm study on one Identification on
+    the card, and the same study on the CPU in f64."""
+    import torch
+
+    from flobaroid_tpu_torch.identification import cad_study
+
+    d = os.path.join(tmp, "cad")
+    cad = copy_urdf(H30_URDF, d, with_cache=True)
+    real, meas = (shutil.copy(f, d) for f in (H30_REAL_URDF, H30_CAD_RECORDING))
+    over = dict(skipSamples=1)
+    modes = list(cad_study.MODE_OVERRIDES)
+
+    def gates(label, res):
+        b = {m: res[m]["base_dist"] for m in modes}
+        for m in modes:
+            check(str(res[m]["status"]).startswith("optimal"), f"{label}: {m} ended {res[m]['status']}")
+            check(res[m]["res_error_pct"] < 5.0, f"{label}: {m} residual {res[m]['res_error_pct']} %")
+            check(abs(b[m] / CAD_BASE_DIST[m] - 1) <= 0.03,
+                  f"{label}: {m} base distance {b[m]} not within 3 % of {CAD_BASE_DIST[m]}")
+        check(b["uniform"] > b["observability"] > 0.98 * b["geometric"]
+              and abs(b["geometric"] - b["geometric_obs"]) < 0.15 * b["geometric"],
+              f"{label}: ordering of the base distances {b}")
+
+    start, start_shapes = gram.launches, Counter(gram.launch_shapes)
+    t0 = time.perf_counter()
+    idf = cad_study.study_identification(cad, real, meas, over, device="cuda")
+    init_s = time.perf_counter() - t0
+    check(gram.launches == start, "cad study: the checked-in structural cache was not used")
+    check(idf.model.num_base_params == H30_RANK, f"cad study: rank {idf.model.num_base_params}")
+    out = {}
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        res = cad_study.run_cad_study(cad, real, meas, idf=idf)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[label] = res
+        consistent = physically_consistent(idf)
+        emit(f"cad_study_{label}", device="cuda", n_samples=idf.data.num_used_samples,
+             init_s=init_s, wall_s=wall, stage_times_last_mode_s=idf.stage_times,
+             sdp_s={m: res[m]["sdp_s"] for m in modes},
+             newton_iters={m: res[m]["newton_iters"] for m in modes},
+             status={m: res[m]["status"] for m in modes},
+             base_dist={m: res[m]["base_dist"] for m in modes},
+             std_dist={m: res[m]["std_dist"] for m in modes},
+             res_error_pct={m: res[m]["res_error_pct"] for m in modes},
+             apriori=res["apriori"], launches={m: res[m]["launches"] for m in modes},
+             physically_consistent=consistent, table=cad_study.format_table(res))
+        gates(f"cad study ({label})", res)
+        check([res[m]["launches"] for m in modes] == [1, 0, 0, 0],
+              f"cad study ({label}): launches by mode {[res[m]['launches'] for m in modes]}: "
+              f"the modes must share one regressor pass")
+        check(consistent, f"cad study ({label}): not physically consistent")
+    shapes = gram.launch_shapes - start_shapes
+    check(dict(shapes) == {CAD_STUDY_SHAPE: 2} and CAD_STUDY_SHAPE in CHECKED_SHAPES,
+          f"cad study: launches {dict(shapes)}, not one per study at {CAD_STUDY_SHAPE}")
+    check(idf.model.G_rows.device.type == "cuda", f"cad study: G_rows on {idf.model.G_rows.device}")
+
+    # the same study by the port on the CPU in f64: what the card's f32
+    # Grams change
+    before = gram.launches
+    t0 = time.perf_counter()
+    cpu = cad_study.run_cad_study(cad, real, meas, dict(over, computeDtype="float64"),
+                                  device="cpu")
+    check(gram.launches == before, "cad study on the CPU launched the kernel")
+    gates("cad study (cpu f64)", cpu)
+    diff = {m: abs(out["cold"][m]["base_dist"] / cpu[m]["base_dist"] - 1) for m in modes}
+    emit("cad_study_cpu_f64", wall_s=time.perf_counter() - t0,
+         base_dist={m: cpu[m]["base_dist"] for m in modes},
+         std_dist={m: cpu[m]["std_dist"] for m in modes},
+         newton_iters={m: cpu[m]["newton_iters"] for m in modes},
+         card_base_dist_rel_diff=diff)
+    check(max(diff.values()) <= 0.01, f"cad study: card vs cpu f64 base distances differ by {diff}")
+    return out
+
+
+def essential_cuda_vs_cpu(gram) -> dict:
+    """The arm's essential parameters (the deletion order decides the set)
+    from 2000 states with noisy torques: the card's f32 Grams must give
+    the essential set the CPU's give."""
+    from flobaroid_tpu_torch.identification.identifier import Identification
+    from flobaroid_tpu_torch.utils.config import load_config
+
+    opt = load_config(None, overrides={**BENCH_OPTIONS, "randomSamples": 600,
+                                       "simulateTorques": 0, "useEssentialParams": 1})
+    out, samples = {}, None
+    for device in ("cpu", "cuda"):
+        idf = Identification(dict(opt), ARM_URDF, device=device)
+        if samples is None:
+            samples = build_samples(idf.model, 2000)
+            tau = idf.model.simulate_dynamics(samples, np.arange(2000))
+            samples["torques"] = tau + 0.05 * np.random.default_rng(7).standard_normal(tau.shape)
+        idf.data.init_from_data(dict(samples))
+        idf.estimateParameters()
+        out[device] = idf
+    c, g = out["cpu"], out["cuda"]
+    res = dict(num_base_params=g.model.num_base_params,
+               essential_cuda=g.baseEssentialIdx, essential_cpu=c.baseEssentialIdx,
+               xBase_essential_rel_diff=float(
+                   np.linalg.norm(g.xBase_essential - c.xBase_essential)
+                   / np.linalg.norm(c.xBase_essential)),
+               res_error_pct=[float(g.res_error), float(c.res_error)])
+    emit("essential_cuda_vs_cpu", **res)
+    check(g.baseEssentialIdx == c.baseEssentialIdx, "essential parameters: the card's set differs")
+    check(0 < len(g.baseEssentialIdx) < g.model.num_base_params,
+          f"essential parameters: {len(g.baseEssentialIdx)} of {g.model.num_base_params} kept")
+    check(res["xBase_essential_rel_diff"] <= 1e-3,
+          f"essential parameters: xBase_essential differs by {res['xBase_essential_rel_diff']}")
+    return res
+
+
 def compare_cuda_cpu(gram, label: str, tol: float, **kw) -> dict:
     """The same identify on the card and on the CPU: xBase within `tol`
     relative, the same SDP status."""
@@ -468,8 +591,12 @@ def main() -> int:
         gram.launches = 0
         run_walking_leg(gram, tmp)
         walk_launches = gram.launches
+        # phase 5: the CAD-study leg
+        gram.launches = 0
+        run_cad_leg(gram, tmp)
+        cad_launches = gram.launches
 
-        # phase 5: the port on the card vs on the CPU, both on the
+        # phase 6: the port on the card vs on the CPU, both on the
         # checked-in caches (the arm's randomSamples=600 hits it), so both
         # use one structural projection
         arm = compare_cuda_cpu(gram, "cuda_vs_cpu", 1e-4, urdf=ARM_URDF, n=2000, warm=0,
@@ -491,6 +618,7 @@ def main() -> int:
                          urdf=copy_urdf(H30_URDF, os.path.join(tmp, "walk_cmp"), with_cache=True),
                          n=1200, warm=0, cache_miss=False, options=WALK_OPTIONS,
                          make_samples=card_walk_samples)
+        essential_cuda_vs_cpu(gram)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -511,8 +639,9 @@ def main() -> int:
         "route": "cuda",
         "source": "flobaroid_tpu_torch/csrc/gram.cu",
         "replaces": "flobaroid_tpu/ops/gram.py:48",
-        "launches": arm_launches + walk_launches,
-        "launches_by_path": {"arm": arm_launches, "walking": walk_launches},
+        "launches": arm_launches + walk_launches + cad_launches,
+        "launches_by_path": {"arm": arm_launches, "walking": walk_launches,
+                             "cad_study": cad_launches},
         "shape": "4096x36x432",
         **{k: main_shape[k] for k in keys},
         "by_shape": {name: {k: r[k] for k in keys} for name, r in kern.items()

@@ -98,6 +98,15 @@ class DynamicsEngine:
                     mask[i, dj] = 1.0
         self.ancestor_mask = mask
 
+        # subtree membership: sub[s, l] = 1 iff link l is in the subtree
+        # rooted at link s (an F/T sensor mounted above link s measures
+        # the wrench generated by exactly these links)
+        sub = np.zeros((L, L))
+        for l in range(L):
+            for a in tree.ancestors(l) + [l]:
+                sub[a, l] = 1.0
+        self.subtree_mask = sub
+
         # depth levels for the level-synchronous FK: all links at one
         # tree depth transform in one batched step
         depth = np.zeros(L, dtype=int)
@@ -106,6 +115,7 @@ class DynamicsEngine:
             depth[i] = 0 if pa < 0 else depth[pa] + 1
         self.levels = [np.where(depth == d)[0] for d in range(int(depth.max()) + 1)]
         self._consts: dict = {}
+        self._zero_gravity: DynamicsEngine | None = None
 
     # ------------------------------------------------------------------
     def _c(self, dtype, device) -> dict:
@@ -341,9 +351,63 @@ class DynamicsEngine:
         return self.inverse_dynamics_batch(
             pi, q[None], dq[None], ddq[None], *b, floating=floating)[0]
 
+    def sensor_wrench_regressor(self, sensor_links, Q, DQ, DDQ,
+                                base_rot=None, base_vel=None, base_acc=None):
+        """Regressor rows of the wrench a 6-axis F/T sensor above each
+        given link would measure: for sensor link s, the world-frame
+        wrench (about the world origin, [force; moment] like the
+        floating-base rows) generated by the links in subtree(s). A
+        sensor on the root link of a floating-base model reproduces the
+        base-wrench rows exactly. (The sensor-local wrench differs by an
+        invertible 6x6 transform, which preserves the row space: the
+        frame does not matter for identifiability analysis.)
+
+        sensor_links: link indices (S,). Returns (N, 6*S, 10L)."""
+        BR, BV, BA = self._default_base(Q, base_rot, base_vel, base_acc)
+        Rw, pw, s, V, A, mask = self._world_kinematics(Q, DQ, DDQ, BR, BV, BA)
+        w, vl, alpha, al = self._body_frame_va(Rw, pw, V, A)
+        blk = self._link_regressor_blocks(w, vl, alpha, al)
+        Fw = self._force_to_world(Rw, pw, blk)  # (N, L, 6, 10), [moment; force]
+        Fw_fm = torch.cat([Fw[..., 3:, :], Fw[..., :3, :]], dim=-2)
+        sub = torch.as_tensor(self.subtree_mask[np.asarray(sensor_links, dtype=int)],
+                              dtype=Q.dtype, device=Q.device)  # (S, L)
+        out = torch.einsum("sl,nldc->nsdlc", sub, Fw_fm)  # (N, S, 6, L, 10)
+        return out.reshape(Q.shape[0], len(sensor_links) * 6, self.num_links * 10)
+
     # ------------------------------------------------------------------
     # derived quantities
     # ------------------------------------------------------------------
+    def mass_matrix(self, pi, Q, base_rot=None, floating: bool = False):
+        """Joint-space (N, n, n) or free-floating mixed (N, 6+n, 6+n) mass
+        matrices: column k is the inverse dynamics of a unit acceleration
+        along coordinate k at rest under zero gravity, all columns of all
+        samples in one batch (replaces iDynTree getFreeFloatingMassMatrix,
+        used by the reference's suspended-base simulation)."""
+        if self._zero_gravity is None:
+            self._zero_gravity = DynamicsEngine(self.tree, gravity=np.zeros(3))
+        N, n = Q.shape
+        dim = 6 + n if floating else n
+        unit = torch.eye(dim, dtype=Q.dtype, device=Q.device).repeat(N, 1)  # (N*dim, dim)
+        Qr = Q.repeat_interleave(dim, dim=0)
+        zeros = torch.zeros_like(Qr)
+        if floating:
+            BR, _, _ = self._default_base(Q, base_rot, None, None)
+            cols = self._zero_gravity.inverse_dynamics_batch(
+                pi, Qr, zeros, unit[:, 6:], BR.repeat_interleave(dim, dim=0),
+                torch.zeros_like(unit[:, :6]), unit[:, :6])
+        else:
+            cols = self._zero_gravity.inverse_dynamics_batch(pi, Qr, zeros, unit, floating=False)
+        return cols.reshape(N, dim, dim).transpose(1, 2)
+
+    def bias_forces(self, pi, Q, DQ, base_rot=None, base_vel=None, floating=False):
+        """Coriolis + gravity generalized forces (zero-acceleration
+        inverse dynamics), (N, rows)."""
+        zeros = torch.zeros_like(Q)
+        if floating:
+            BR, BV, BA = self._default_base(Q, base_rot, base_vel, None)
+            return self.inverse_dynamics_batch(pi, Q, DQ, zeros, BR, BV, BA)
+        return self.inverse_dynamics_batch(pi, Q, DQ, zeros, floating=False)
+
     def frame_jacobian(self, link_index: int, Q, base_rot=None):
         """Mixed free-floating Jacobians (N, 6, 6+n) of one link frame:
         rows [linear; angular] in world coords at the frame origin,
@@ -374,6 +438,25 @@ class DynamicsEngine:
         Jb = torch.cat([torch.cat([eye, -sp.skew(pf)], dim=2),
                         torch.cat([zero, eye], dim=2)], dim=1)
         return torch.cat([Jb, Jq], dim=2)
+
+
+    def frame_velocity(self, link_index: int, Q, DQ, base_rot, base_vel):
+        """Mixed frame velocities [linear; angular] in world coords, (N, 6)."""
+        J = self.frame_jacobian(link_index, Q, base_rot)
+        return (J @ torch.cat([base_vel, DQ], dim=-1)[..., None])[..., 0]
+
+    def total_mass(self, pi):
+        return pi.reshape(self.num_links, 10)[:, 0].sum()
+
+    def com_world(self, pi, Q, base_rot=None):
+        """Overall center of mass in world coords, (N, 3)."""
+        Rw, pw = self.fk(Q)
+        if base_rot is not None:
+            pw = (base_rot[:, None] @ pw[..., None])[..., 0]
+            Rw = base_rot[:, None] @ Rw
+        p10 = pi.reshape(self.num_links, 10)
+        h_w = (Rw @ p10[:, 1:4, None])[..., 0] + p10[:, 0:1] * pw  # (N, L, 3)
+        return h_w.sum(dim=1) / torch.clamp(p10[:, 0].sum(), min=1e-12)
 
 
 def rpy_to_base_rot(rpy):

@@ -1,12 +1,15 @@
 """Log-barrier interior-point solver for the physical-consistency
 programs, on torch tensors in f64 on the model's device.
 
-Port of the quadratic solver of flobaroid_tpu/identification/conic.py
-(see its docstring for the method: primal barrier path following with
-damped Newton steps over linear inequalities and stacked affine PSD
-blocks M_k(x) = F0[k] + sum_i x_i F[k, i], analytic barrier gradient and
+Port of flobaroid_tpu/identification/conic.py (see its docstring for
+the method: primal barrier path following with damped Newton steps over
+linear inequalities and stacked affine PSD blocks
+M_k(x) = F0[k] + sum_i x_i F[k, i], analytic barrier gradient and
 Hessian over each block's active columns, a 40-point ray line search,
-a proximal phase-I, and a free-riding KKT certificate).
+a proximal phase-I, and a free-riding KKT certificate): the reusable
+solver for quadratic objectives (`QuadBarrierSolver`) and the path for a
+general convex objective (`barrier_minimize`, `phase1`, `solve`), which
+share the barrier core, the Newton step and the certificate.
 
 What differs from the JAX module:
   * a failed Cholesky factor (a non-PD block or Newton matrix) is read
@@ -23,9 +26,12 @@ What differs from the JAX module:
     a stage can end at lam < 0.25 on a rung too low for its gap bound,
     and the JAX policy then reported 'optimal_inexact' without trying
     (seen on the 7-DOF arm at 60 000 samples, where the outcome flipped
-    with the last bits of the f32 Gram).
-The geometric (log-det) objective and `barrier_minimize`/`solve` are not
-ported yet (ROADMAP.md, queue 1).
+    with the last bits of the f32 Gram). Both solvers here use this one
+    policy;
+  * a general objective is a function of a torch tensor that accepts a
+    leading batch axis (the line search evaluates its 41 points in one
+    call); its gradient and Hessian come from `obj_grad_hess` where the
+    problem has them in closed form, else from torch.func.
 """
 
 from __future__ import annotations
@@ -43,12 +49,16 @@ from ..device import resolve_device
 class BarrierProblem:
     """minimize f(x) s.t. A x <= b and M_k(x) >> eps*I."""
 
-    objective: Callable  # x -> scalar (convex)
+    # f64 tensor (..., n) -> (...), convex, made of torch ops
+    objective: Callable
     A: np.ndarray | None = None  # (m, n)
     b: np.ndarray | None = None  # (m,)
-    psd_maps: list[Callable] = field(default_factory=list)  # x -> (d,d) affine
+    psd_maps: list[Callable] = field(default_factory=list)  # numpy x -> (d,d) affine
     psd_eps: float = 1e-6
     obj_hess_const: np.ndarray | None = None  # constant objective Hessian
+    # x (n,) -> (gradient (n,), Hessian (n, n)) in closed form; without it
+    # torch.func differentiates `objective`
+    obj_grad_hess: Callable | None = None
 
 
 _LS_STEPS = 0.5 ** np.arange(40)
@@ -258,6 +268,21 @@ class _BarrierCore:
                 H = H + Wm.T @ Wm
         return g, H
 
+    def ray_values(self, x, dx, s):
+        """Barrier value at x + s_i*dx for every step s_i (nan when
+        infeasible): slacks sweep as slack0 - s*dslack, blocks as
+        M0 + s*dM — no per-candidate reconstruction."""
+        ax, Ms0 = self.lin(x)
+        adx, dMs = self.lin(dx)
+        tot = torch.zeros_like(s)
+        if ax is not None:
+            sl = (self.b - ax)[None, :] - s[:, None] * adx[None, :]
+            tot = tot - torch.log(sl).sum(dim=1)
+        for (F0, _, _, _), M0, dM in zip(self.groups, Ms0, dMs):
+            Mse = (F0 + M0)[None] + s[:, None, None, None] * dM[None]
+            tot = tot - _logdet_or_nan(Mse).sum(dim=1)
+        return tot
+
     def feas_slack(self, x):
         """max constraint violation at x (s0 for phase-I); blocks carry
         the -eps*I shift, so >0 means infeasible for the SHIFTED cone."""
@@ -268,6 +293,52 @@ class _BarrierCore:
         for (F0, _, _, _), M in zip(self.groups, Ms):
             s = torch.maximum(s, -torch.linalg.eigvalsh(F0 + M).min())
         return s
+
+
+def _line_search_steps(device):
+    """(steps (40,), [0, steps] (41,)) of the backtracking line search."""
+    steps = torch.as_tensor(_LS_STEPS, dtype=_F64, device=device)
+    return steps, torch.cat([torch.zeros(1, dtype=_F64, device=device), steps])
+
+
+def _newton_direction(g, Hm):
+    """Newton direction and decrement of the SPD system Hm dx = -g (t H
+    convex + barrier Hessian + ridge); a failed factorization marks the
+    step bad and takes the gradient instead."""
+    n = g.numel()
+    lam = 1e-12 * torch.clamp(torch.trace(Hm) / n, min=1.0)
+    L, info = torch.linalg.cholesky_ex(Hm + lam * torch.eye(n, dtype=_F64, device=g.device))
+    dx = torch.cholesky_solve(-g[:, None], L)[:, 0]
+    dec = -g @ dx
+    bad = (info != 0) | ~torch.isfinite(dec) | (dec <= 0) | ~torch.isfinite(dx).all()
+    return torch.where(bad, -g, dx), torch.where(bad, g @ g, dec)
+
+
+def _armijo(x, dx, dec, vals_ext, steps):
+    """The largest step of `steps` whose value (vals_ext[1:]; vals_ext[0]
+    is the value at x) is finite and meets the Armijo condition.
+    Returns (x_new, dec, any_ok, step)."""
+    vals = vals_ext[1:]
+    ok = torch.isfinite(vals) & (vals <= vals_ext[0] - 1e-4 * steps * dec)
+    any_ok = ok.any()
+    step_sel = torch.where(any_ok, steps[ok.to(torch.int8).argmax()], 0.0)
+    return torch.where(any_ok, x + step_sel * dx, x), dec, any_ok, step_sel
+
+
+def _newton_run(step, x, tol, max_iter, stall_ratio):
+    """One centering stage: Newton steps `step(x) -> (x, dec, ok, step)`
+    until the decrement converges, the line search fails (step < 1e-8),
+    or the decrement stalls (ratio >= stall_ratio after the damped
+    phase). One host read per step. Returns (x, iterations, dec, ok)."""
+    it, dec, prev_dec, ok, size = 0, np.inf, np.inf, True, 1.0
+    while (it < max_iter and ok and dec / 2.0 >= tol and size >= 1e-8
+           and (it < 6 or dec <= stall_ratio * prev_dec)):
+        x, dec_n, ok_n, size_n = step(x)
+        dec_f, ok_f, size_f = torch.stack(
+            [dec_n, ok_n.to(_F64), size_n.to(_F64)]).tolist()
+        prev_dec, dec, ok, size = dec, dec_f, bool(ok_f), size_f
+        it += 1
+    return x, it, dec, ok
 
 
 class QuadBarrierSolver:
@@ -287,11 +358,10 @@ class QuadBarrierSolver:
         self._groups = stack_affine_psd(psd_maps, n) if _groups is None else _groups
         self.core = _BarrierCore(A, b, self._groups, psd_eps, n, self.device)
         self._nu_val = max(self.core.nu, 1.0)
-        self._steps = torch.as_tensor(_LS_STEPS, dtype=_F64, device=self.device)
-        self._steps_ext = torch.cat([torch.zeros(1, dtype=_F64, device=self.device),
-                                     self._steps])
+        self._steps, self._steps_ext = _line_search_steps(self.device)
         self._warm = None
         self._p1 = None
+        self._newton_iters = 0  # Newton steps of the solve in progress
 
     def _t(self, a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=_F64, device=self.device)
@@ -303,62 +373,23 @@ class QuadBarrierSolver:
     def _psi(self, x, t, H, q) -> float:
         return float(t * self._quad(x, H, q) + self.core.value(x))
 
-    def _ray_barrier_vals(self, x, dx):
-        """Barrier value at x + s*dx for every s of the line search (nan
-        when infeasible): slacks sweep as slack0 - s*dslack, blocks as
-        M0 + s*dM — no per-candidate reconstruction."""
-        core, s = self.core, self._steps_ext
-        ax, Ms0 = core.lin(x)
-        adx, dMs = core.lin(dx)
-        tot = torch.zeros_like(s)
-        if ax is not None:
-            sl = (core.b - ax)[None, :] - s[:, None] * adx[None, :]
-            tot = tot - torch.log(sl).sum(dim=1)
-        for (F0, _, _, _), M0, dM in zip(core.groups, Ms0, dMs):
-            Mse = (F0 + M0)[None] + s[:, None, None, None] * dM[None]
-            tot = tot - _logdet_or_nan(Mse).sum(dim=1)
-        return tot
-
     def _newton_step(self, x, t, H, q):
-        n = self.n
         gb, Hb = self.core.grad_hess(x)
         Hx_q = H @ x + q
-        g = t * Hx_q + gb
-        Hm = t * H + Hb
-        lam = 1e-12 * torch.clamp(torch.trace(Hm) / n, min=1.0)
-        # Hm is SPD (t H convex + barrier Hessian + ridge); a failed
-        # factorization marks the step bad and takes the gradient instead
-        L, info = torch.linalg.cholesky_ex(Hm + lam * torch.eye(n, dtype=_F64, device=x.device))
-        dx = torch.cholesky_solve(-g[:, None], L)[:, 0]
-        dec = -g @ dx
-        bad = (info != 0) | ~torch.isfinite(dec) | (dec <= 0) | ~torch.isfinite(dx).all()
-        dx = torch.where(bad, -g, dx)
-        dec = torch.where(bad, g @ g, dec)
+        dx, dec = _newton_direction(t * Hx_q + gb, t * H + Hb)
         # ray-form line search: the quadratic is exactly quadratic in the
         # step, the barrier affine maps sweep as M0 + s*dM
-        steps, s = self._steps, self._steps_ext
-        bvals = self._ray_barrier_vals(x, dx)
+        s = self._steps_ext
         quad_ext = (self._quad(x, H, q) + s * (dx @ Hx_q) + s**2 * (0.5 * dx @ (H @ dx)))
-        vals_ext = t * quad_ext + bvals
-        vals = vals_ext[1:]
-        ok = torch.isfinite(vals) & (vals <= vals_ext[0] - 1e-4 * steps * dec)
-        any_ok = ok.any()
-        step_sel = torch.where(any_ok, steps[ok.to(torch.int8).argmax()], 0.0)
-        return torch.where(any_ok, x + step_sel * dx, x), dec, any_ok, step_sel
+        vals_ext = t * quad_ext + self.core.ray_values(x, dx, s)
+        return _armijo(x, dx, dec, vals_ext, self._steps)
 
     def _newton_run(self, x, t, H, q, tol, max_iter, stall_ratio):
-        """One centering stage: Newton steps until the decrement
-        converges, the line search fails (step < 1e-8), or the decrement
-        stalls (ratio >= stall_ratio after the damped phase)."""
-        it, dec, prev_dec, ok, step = 0, np.inf, np.inf, True, 1.0
-        while (it < max_iter and ok and dec / 2.0 >= tol and step >= 1e-8
-               and (it < 6 or dec <= stall_ratio * prev_dec)):
-            x, dec_n, ok_n, step_n = self._newton_step(x, t, H, q)
-            dec_f, ok_f, step_f = torch.stack(
-                [dec_n, ok_n.to(_F64), step_n.to(_F64)]).tolist()
-            prev_dec, dec, ok, step = dec, dec_f, bool(ok_f), step_f
-            it += 1
-        return x, it, dec, ok
+        """One centering stage at barrier parameter t (see _newton_run)."""
+        out = _newton_run(lambda y: self._newton_step(y, t, H, q), x, tol, max_iter,
+                          stall_ratio)
+        self._newton_iters += out[1]
+        return out
 
     def _feas_slack(self, x) -> float:
         return float(self.core.feas_slack(x))
@@ -388,6 +419,7 @@ class QuadBarrierSolver:
         q = np.asarray(q, dtype=np.float64)
         x = self._t(x0)
         nu = self._nu_val
+        self._newton_iters = 0
         f0 = 0.5 * float(x0 @ (H @ x0)) + float(q @ x0) + const
         # normalize the quadratic to O(1) at the start: decrements, stall
         # cutoffs and the certificate lambda are absolute quantities
@@ -426,6 +458,7 @@ class QuadBarrierSolver:
                         "barrier_t": float(t),
                         "polish_iters": int(it),
                         "certify_iters": 0,
+                        "newton_iters": self._newton_iters,
                         "warm_start": True,
                         "status": status,
                     }
@@ -472,6 +505,7 @@ class QuadBarrierSolver:
             "barrier_t": float(t),
             "polish_iters": int(it),
             "certify_iters": int(it_c),
+            "newton_iters": self._newton_iters,
             "status": status,
         }
         x_np = x_ret.cpu().numpy()
@@ -488,14 +522,9 @@ class QuadBarrierSolver:
             if self.A is not None and len(self.A) > 0:
                 A1 = np.hstack([self.A, -np.ones((self.A.shape[0], 1))])
                 b1 = self.b
-            lifted = []
-            for F0, F in self._groups:
-                K, d = F0.shape[0], F0.shape[1]
-                Fl = np.concatenate(
-                    [F, np.broadcast_to(np.eye(d), (K, d, d))[..., None]], axis=-1)
-                lifted.append((F0, Fl))
             self._p1 = QuadBarrierSolver(
-                A1, b1, [], self.psd_eps, self.n + 1, _groups=lifted, device=self.device)
+                A1, b1, [], self.psd_eps, self.n + 1, _groups=_lift_groups(self._groups),
+                device=self.device)
         return self._p1
 
     def phase1(self, x0, margin: float = 1e-8):
@@ -525,3 +554,188 @@ class QuadBarrierSolver:
             self.last_info = {"status": "infeasible"}
             return np.asarray(x0), "infeasible"
         return self.minimize(x_feas, H, q, const=const, **kw)
+
+
+def _objective_grad_hess(prob: BarrierProblem, device):
+    """x -> (gradient, Hessian) of the problem's objective: its closed
+    form where it has one, else torch.func's (with a constant Hessian
+    taken from `obj_hess_const`)."""
+    if prob.obj_grad_hess is not None:
+        return prob.obj_grad_hess
+    grad = torch.func.grad(prob.objective)
+    if prob.obj_hess_const is not None:
+        H_const = torch.as_tensor(np.asarray(prob.obj_hess_const), dtype=_F64, device=device)
+        return lambda x: (grad(x), H_const)
+    hess = torch.func.hessian(prob.objective)
+    return lambda x: (grad(x), hess(x))
+
+
+def barrier_minimize(
+    prob: BarrierProblem,
+    x0: np.ndarray,
+    t0: float | None = None,
+    mu: float = 60.0,
+    gap_tol: float = 1e-7,
+    newton_tol: float = 1e-7,
+    max_newton: int = 60,
+    max_outer: int = 14,
+    stop_fn=None,
+    verbose: bool = False,
+    _core: _BarrierCore | None = None,
+    info: dict | None = None,
+    *,
+    device,
+):
+    """Primal barrier path following for a GENERAL convex objective
+    (analytic barrier derivatives; the objective's own from
+    `_objective_grad_hess`). Returns (x, status): 'optimal' |
+    'optimal_inexact' | 'infeasible_start' | 'max_iter' | 'stopped'. x0
+    must be strictly feasible (see phase1). The duality-gap test is
+    anchored to the objective scale at the START (a diverging objective
+    must not loosen it). Pass `info` to receive the KKT certificate (gap,
+    final Newton decrement, max violation) and the Newton step count."""
+    device = resolve_device(device)
+    n = len(x0)
+    core = _core if _core is not None else _BarrierCore(
+        prob.A, prob.b, stack_affine_psd(prob.psd_maps, n), prob.psd_eps, n, device)
+    x = torch.as_tensor(np.asarray(x0, dtype=np.float64), dtype=_F64, device=device)
+    nu = max(core.nu, 1.0)
+    grad_hess = _objective_grad_hess(prob, device)
+    steps, steps_ext = _line_search_steps(device)
+    newton_iters = 0
+
+    def newton_run(x, t, tol, max_iter, stall_ratio):
+        nonlocal newton_iters
+
+        def step(x):
+            gb, Hb = core.grad_hess(x)
+            go, Ho = grad_hess(x)
+            dx, dec = _newton_direction(t * go + gb, t * Ho + Hb)
+            cand = x[None, :] + steps_ext[:, None] * dx[None, :]
+            vals_ext = t * prob.objective(cand) + core.ray_values(x, dx, steps_ext)
+            return _armijo(x, dx, dec, vals_ext, steps)
+
+        x, it, dec, ok = _newton_run(step, x, tol, max_iter, stall_ratio)
+        newton_iters += it
+        if verbose:
+            print(f"  centering t={t:.3g} newton_iters={it} dec={dec:.3g}")
+        return x, dec
+
+    def done(x, status, **fields):
+        if info is not None:
+            info.update(status=status, newton_iters=newton_iters, **fields)
+        return x.cpu().numpy(), status
+
+    f0_scale = max(1.0, abs(float(prob.objective(x))))
+    if t0 is None:
+        t0 = max(1.0, nu / f0_scale)
+    if not np.isfinite(float(t0 * prob.objective(x) + core.value(x))):
+        return done(x, "infeasible_start")
+
+    # free-riding certification (see QuadBarrierSolver.minimize): every
+    # cleanly-converged centering carries a certificate at its rung; keep
+    # the best, and when none qualifies for 'optimal' run one explicit
+    # centering at the robust rung t_cert = nu/(1e-4 f0). Any bound
+    # transfers to the returned point via objective comparison.
+    t = t0
+    t_cert_target = nu / (1e-4 * f0_scale)
+    cert = _CertTracker(nu, f0_scale, x, t)
+    for _outer in range(max_outer):
+        if stop_fn is not None and stop_fn(x.cpu().numpy()):
+            return done(x, "stopped")
+        if nu / t < gap_tol * f0_scale:
+            break
+        x, dec_s = newton_run(x, t, newton_tol, max_newton, 0.95)
+        if stop_fn is not None and stop_fn(x.cpu().numpy()):
+            return done(x, "stopped")
+        cert.offer(x, dec_s, t)
+        t = t * mu
+    # final tight centering at the last t (certificate source)
+    x, dec_f = newton_run(x, t, newton_tol, max_newton, 0.95)
+    f_hi = float(prob.objective(x))
+    cert.offer(x, dec_f, t)
+    if not cert._qualifies(cert.lam, cert.t):
+        x_c, dec_c = newton_run(x, t_cert_target, newton_tol, 2 * max_newton, 2.0)
+        cert.offer(x_c, dec_c, t_cert_target)
+    x_ret = x if f_hi <= float(prob.objective(cert.x)) else cert.x
+    gap, cert_gap, status = _certificate_status(nu, t, cert.t, cert.lam, f0_scale)
+    return done(
+        x_ret, status,
+        gap=float(gap), gap_rel=float(gap / f0_scale),
+        cert_gap_rel=float(cert_gap / f0_scale), cert_t=float(cert.t),
+        newton_lambda=cert.lam, max_violation=float(core.feas_slack(x_ret)),
+        barrier_t=float(t),
+    )
+
+
+def _lift_groups(groups):
+    """Stacked PSD groups with one more variable s entering as M + s I."""
+    lifted = []
+    for F0, F in groups:
+        K, d = F0.shape[0], F0.shape[1]
+        Fl = np.concatenate(
+            [F, np.broadcast_to(np.eye(d), (K, d, d))[..., None]], axis=-1)
+        lifted.append((F0, Fl))
+    return lifted
+
+
+def phase1(prob: BarrierProblem, x0: np.ndarray, margin: float = 1e-8, verbose=False,
+           _groups=None, _core: _BarrierCore | None = None, *, device):
+    """Find a strictly feasible point by minimizing the max violation s:
+    g <= s, M_k + s I >> eps I (with a proximal term that keeps the
+    minimizer finite). Returns (x, feasible: bool)."""
+    device = resolve_device(device)
+    n = len(x0)
+    x0 = np.asarray(x0, dtype=float)
+    groups = stack_affine_psd(prob.psd_maps, n) if _groups is None else _groups
+    core = _core if _core is not None else _BarrierCore(
+        prob.A, prob.b, groups, prob.psd_eps, n, device)
+    s0 = float(core.feas_slack(torch.as_tensor(x0, dtype=_F64, device=device)))
+    if s0 <= 0:
+        return x0, True
+
+    s0 = s0 * 1.5 + 1e-6
+    A1 = b1 = None
+    if prob.A is not None and prob.A.shape[0] > 0:
+        A1 = np.hstack([prob.A, -np.ones((prob.A.shape[0], 1))])
+        b1 = prob.b
+    core1 = _BarrierCore(A1, b1, _lift_groups(groups), prob.psd_eps, n + 1, device)
+
+    x0t = torch.as_tensor(x0, dtype=_F64, device=device)
+    prox = 1e-6
+    Hq = np.zeros((n + 1, n + 1))
+    Hq[:n, :n] = 2 * prox * np.eye(n)
+    p1 = BarrierProblem(
+        objective=lambda z: z[..., -1] + prox * ((z[..., :-1] - x0t) ** 2).sum(dim=-1),
+        A=A1,
+        b=b1,
+        psd_maps=[],
+        psd_eps=prob.psd_eps,
+        obj_hess_const=Hq,
+    )
+    z0 = np.concatenate([x0, [s0]])
+    z, _ = barrier_minimize(
+        p1, z0, gap_tol=1e-6, max_outer=10, mu=20.0,
+        stop_fn=lambda z: float(z[-1]) < -margin,
+        verbose=verbose, _core=core1, device=device,
+    )
+    return z[:-1], bool(float(z[-1]) < -1e-12)
+
+
+def solve(prob: BarrierProblem, x0: np.ndarray, verbose: bool = False,
+          info: dict | None = None, *, device, **kw):
+    """Phase-I (if needed) + barrier minimize, in f64 on `device`.
+    Returns (x, status)."""
+    device = resolve_device(device)
+    # probe the affine PSD structure ONCE and share the barrier core
+    # between phase-I and the main path
+    n = len(x0)
+    groups = stack_affine_psd(prob.psd_maps, n)
+    core = _BarrierCore(prob.A, prob.b, groups, prob.psd_eps, n, device)
+    x_feas, ok = phase1(prob, x0, verbose=verbose, _groups=groups, _core=core, device=device)
+    if not ok:
+        if info is not None:
+            info.update(status="infeasible")
+        return np.asarray(x0), "infeasible"
+    return barrier_minimize(prob, x_feas, verbose=verbose, info=info, _core=core,
+                            device=device, **kw)

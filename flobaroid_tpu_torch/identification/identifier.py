@@ -3,10 +3,11 @@
 Port of flobaroid_tpu/identification/identifier.py (the counterpart of
 the reference's `Identification` class, identifier.py:41), bound to the
 port's Model and Data: the regressor and Gram work runs on the model's
-device, the estimation flow (OLS/WLS, the base-wrench split, SDP, std
-recovery, reporting, held-out validation) on the host in numpy.
-Essential parameters and the post-identification friction refit are not
-ported yet (ROADMAP.md, queue 1) and raise NotImplementedError.
+device, the estimation flow (OLS/WLS, the base-wrench split, essential
+parameters, SDP, std recovery, the friction refit, reporting, held-out
+validation) on the host in numpy. `score_blocks` is the scoring loop of
+the block selection (Venture 2009) that the identify CLI runs before
+the estimation.
 """
 
 from __future__ import annotations
@@ -25,6 +26,41 @@ from . import least_squares as ls
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to flobaroid_tpu_torch yet (ROADMAP.md, queue 1)")
+
+
+def score_blocks(idf: "Identification"):
+    """Block selection's scoring (Venture 2009; reference
+    identifier.py:1564-1589 + data.py:205-344): ONE regressor pass over
+    all measurements, then per-block base-regressor condition numbers,
+    Grams and per-link subregressor condition numbers, handed to
+    `Data.select_blocks_from_stats` (near-duplicate variance dropping and
+    a greedy keep-if-improves pass on exact union Grams). Returns
+    (conds, link_conds); the selection is in `idf.data.selected_blocks`."""
+    opt = idf.opt
+    if not int(opt.get("materializeRegressor", 1)):
+        raise ValueError(
+            "selectBlocksFromMeasurements needs materializeRegressor=1 "
+            "(per-block rows are sliced from the stacked regressor)"
+        )
+    m = idf.model
+    m.computeRegressors(idf.data)
+    rows_per = m.num_dofs + m.fb
+    skip = int(opt["skipSamples"]) + 1
+    bs = int(opt["blockSize"])
+    conds, link_conds, grams = [], [], []
+    for b in range(idf.data.num_blocks()):
+        # used sample u covers raw index u*skip: raw block
+        # [b*bs, (b+1)*bs) maps to used [ceil(b*bs/skip),
+        # ceil((b+1)*bs/skip)) — a floor-divided block length
+        # drifts ~b*(bs mod skip)/skip samples by block b
+        u0 = -(-(b * bs) // skip)
+        u1 = -(-((b + 1) * bs) // skip)
+        Yb = m.YBase[u0 * rows_per : min(u1 * rows_per, m.YBase.shape[0])]
+        conds.append(float(np.linalg.cond(Yb)) if len(Yb) else 1e16)
+        grams.append(Yb.T @ Yb)
+        link_conds.append(m.getSubregressorsConditionNumbers(YBase=Yb))
+    idf.data.select_blocks_from_stats(conds, link_conds, grams)
+    return conds, link_conds
 
 
 class Identification:
@@ -156,7 +192,8 @@ class Identification:
         if estimateWith == "urdf":
             return np.asarray(m.xStdModel[m.identified_params], dtype=float)
         if estimateWith == "base_essential":
-            raise not_ported("estimateWith='base_essential' (essential parameters)")
+            Pb = m.B if opt["useBasisProjection"] else m.Pb
+            return np.asarray(Pb @ self.xBase_essential, dtype=float)
         if estimateWith == "base":
             Pb = m.B if opt["useBasisProjection"] else m.Pb
             return np.asarray(Pb @ m.xBase, dtype=float)
@@ -197,6 +234,8 @@ class Identification:
             tauEst = m.contract_identified(self._x_for(estimateWith)).reshape(-1)
         elif estimateWith == "urdf":
             tauEst = m.YStd @ m.xStdModel[m.identified_params]
+        elif estimateWith == "base_essential":
+            tauEst = m.YBase @ self.xBase_essential
         elif estimateWith == "base":
             tauEst = m.YBase @ m.xBase
         elif estimateWith in ("std", "std_direct"):
@@ -437,9 +476,152 @@ class Identification:
 
     def getBaseParamsFromParamError(self) -> None:
         self.model.xBase += self.model.xBaseModel
+        if self.opt["useEssentialParams"] and hasattr(self, "xBase_essential"):
+            self.xBase_essential[self.baseEssentialIdx] += self.model.xBaseModel[
+                self.baseEssentialIdx
+            ]
 
     def findStdFromBaseParameters(self) -> None:
         self.model.xStd = ls.std_from_base(self.model, self.model.xBase)
+
+    # ------------------------------------------------------------------
+    # essential parameters (Pham 1991 / Gautier 2013)
+    # ------------------------------------------------------------------
+    def findBaseEssentialParameters(self) -> None:
+        """Iteratively drop the base param with largest relative stddev
+        until max/min stddev ratio < 30 (reference identifier.py:372-529)."""
+        m = self.model
+        if m.YBase is None:
+            return self._findBaseEssentialParametersStreaming()
+        xBase_orig = m.xBase.copy()
+        YBase_orig = m.YBase.copy()
+        base_idx = list(range(m.num_base_params))
+        not_essential: list[int] = []
+        prev_sigma = None
+        prev_xBase = m.xBase.copy()
+        while True:
+            self.estimateRegressorTorques("base")
+            p_sigma = self.getStdDevForParams()
+            ratio = np.max(p_sigma) / max(np.min(p_sigma), 1e-300)
+            if ratio < 30 or len(base_idx) <= 2:
+                break
+            prev_sigma = p_sigma
+            k = int(np.argmax(p_sigma))
+            not_essential.append(base_idx[k])
+            prev_xBase = m.xBase.copy()
+            m.xBase = np.delete(m.xBase, k, 0)
+            del base_idx[k]
+            m.YBase = np.delete(m.YBase, k, 1)
+            self.identifyBaseParameters(id_only=True)
+        if not_essential:
+            # the last deleted parameter brought the ratio under the
+            # threshold; keep it (reference identifier.py:512)
+            not_essential.pop()
+        self.p_sigma_x = prev_sigma if prev_sigma is not None else self.getStdDevForParams()
+        self.baseNonEssentialIdx = not_essential
+        self.baseEssentialIdx = [x for x in range(m.num_base_params) if x not in not_essential]
+        self.num_essential_params = len(self.baseEssentialIdx)
+        # prev_xBase was saved just before the last deletion, so it lines
+        # up with baseEssentialIdx by construction
+        self.xBase_essential = np.zeros(m.num_base_params)
+        self.xBase_essential[self.baseEssentialIdx] = prev_xBase
+        m.YBase = YBase_orig
+        m.xBase = xBase_orig
+
+    def _findBaseEssentialParametersStreaming(self) -> None:
+        """Essential-parameter deletion from the accumulated Grams
+        (materializeRegressor=0): C_xx is proportional to pinv(G_kept),
+        and the residual power rho scales ALL sigmas uniformly — the
+        deletion ORDER and the max/min stop ratio are rho-independent.
+        rho is computed once from a single streamed contraction so the
+        reported sigma magnitudes stay physical (a per-iteration
+        Gram-identity rho cancels catastrophically in f32)."""
+        m = self.model
+        xBase_orig = m.xBase.copy()
+        self.estimateRegressorTorques("base")
+        r = self.data.num_used_samples * (m.num_dofs + m.fb)
+        lr = self._last_resid
+        if lr is not None and lr[0] == "base":
+            # device residual powers from the call above — no (N, rows)
+            # series materialization
+            rho = float(np.sum(lr[1]["rp"]))
+        else:
+            rho = float(np.square(np.linalg.norm(m.tauMeasured - self.tauEstimated)))
+        G0 = np.asarray(m.G_base)
+        rhs0 = np.asarray(m.g_base - m.g_cf_base)
+        kept = list(range(m.num_base_params))
+        not_essential: list[int] = []
+        prev_sigma = None
+        prev_xBase = m.xBase.copy()
+        while True:
+            G = G0[np.ix_(kept, kept)]
+            sigma_rho = rho / max(r - len(kept), 1)
+            p_sigma = np.sqrt(np.abs(np.diag(sigma_rho * np.linalg.pinv(G))))
+            nz = m.xBase != 0
+            p_sigma[nz] = p_sigma[nz] / np.abs(m.xBase[nz])
+            ratio = np.max(p_sigma) / max(np.min(p_sigma), 1e-300)
+            if ratio < 30 or len(kept) <= 2:
+                break
+            prev_sigma = p_sigma
+            k = int(np.argmax(p_sigma))
+            not_essential.append(kept[k])
+            prev_xBase = m.xBase.copy()
+            del kept[k]
+            G = G0[np.ix_(kept, kept)]
+            m.xBase = np.linalg.lstsq(G, rhs0[kept], rcond=None)[0]
+        if not_essential:
+            # the last deleted parameter brought the ratio under the
+            # threshold; keep it (reference identifier.py:512)
+            not_essential.pop()
+        self.p_sigma_x = prev_sigma if prev_sigma is not None else p_sigma
+        self.baseNonEssentialIdx = not_essential
+        self.baseEssentialIdx = [
+            x for x in range(m.num_base_params) if x not in not_essential
+        ]
+        self.num_essential_params = len(self.baseEssentialIdx)
+        self.xBase_essential = np.zeros(m.num_base_params)
+        self.xBase_essential[self.baseEssentialIdx] = prev_xBase
+        m.xBase = xBase_orig
+
+    def findStdFromBaseEssParameters(self) -> None:
+        """Map essential base -> essential std columns (reference
+        identifier.py:531-615)."""
+        m = self.model
+        self.stdEssentialIdx = np.asarray(m.independent_cols)[self.baseEssentialIdx]
+        if self.opt["useDependents"]:
+            deps: list[int] = []
+            for i in self.baseEssentialIdx:
+                for ci in np.nonzero(np.abs(m.K[i]) > float(self.opt["minTol"]))[0]:
+                    if ci not in deps:
+                        deps.append(int(ci))
+            self.stdEssentialIdx = np.unique(
+                np.concatenate((self.stdEssentialIdx, np.asarray(deps, dtype=int)))
+            )
+        self.stdNonEssentialIdx = [
+            x for x in range(m.num_identified_params) if x not in set(self.stdEssentialIdx.tolist())
+        ]
+        self.xStdEssential = np.zeros(m.num_identified_params)
+        if self.opt["useDependents"]:
+            xw = m.xStdModel[m.identified_params].copy()
+            xw[xw == 0] = 0.1
+            self.xStdEssential = xw
+            self.xStdEssential[self.stdNonEssentialIdx] = 0
+        else:
+            take = self.xBase_essential[self.baseEssentialIdx][: len(self.stdEssentialIdx)]
+            self.xStdEssential[self.stdEssentialIdx[: len(take)]] = take
+
+    def identifyStandardEssentialParameters(self) -> None:
+        m = self.model
+        x_id = m.xStdModel[m.identified_params] if self.opt["useAPriori"] else None
+        if m.YStd is None:
+            m.xStd = ls.std_essential_gram(
+                m.G_std, m.g_tau, self.xStdEssential,
+                self.num_essential_params, x_id,
+            )
+        else:
+            m.xStd = ls.std_essential(
+                m.YStd, m.tau, self.xStdEssential, self.num_essential_params, x_id
+            )
 
     def identifyStandardParametersDirect(self) -> None:
         m = self.model
@@ -450,19 +632,87 @@ class Identification:
             m.xStd = ls.std_direct(m.YStd, m.tau, m.num_base_params, x_id)
 
     # ------------------------------------------------------------------
-    def estimateParameters(self) -> None:
+    def _postIdentifyFriction(self) -> None:
+        """Two-step friction refit from the inertial residual (reference
+        identifier.py:979-1168): per-joint OLS of residual on
+        [sign, v, 1], Swevers dead zone, Fv Tikhonov prior, Fv>=0 clamp,
+        write-back into xStd friction slots when the layout permits."""
+        opt = self.opt
+        m = self.model
+        nd, fb = m.num_dofs, m.fb
+        N = self.data.num_used_samples
+        skip = int(opt["skipSamples"]) + 1
+        idx = np.arange(N) * skip
+
+        if m.YStd is None:
+            num_inertial = min(m.num_model_params, m.num_identified_params)
+            x_in = np.zeros(m.num_identified_params)
+            x_in[:num_inertial] = m.xStd[:num_inertial]
+            tau_inertial = m.contract_identified(x_in).reshape(-1)
+        else:
+            num_inertial = min(m.num_model_params, m.YStd.shape[1])
+            tau_inertial = m.YStd[:, :num_inertial] @ m.xStd[:num_inertial]
+        residual2d = (m.torques_stack - tau_inertial).reshape(N, nd + fb)
+
+        vel = np.asarray(self.data.samples["velocities"])[idx, :nd]
+        vsig = helpers.get_friction_sign_velocities(self.data.samples, opt)[idx, :nd]
+        sign = helpers.get_friction_sign_series(self.data.samples, opt)[idx, :nd]
+
+        deadzone = float(opt.get("frictionSwerversDeadZone", 0.0) or opt.get("frictionVelocityDeadZone", 0.0))
+        keep_masks = []
+        fv_energy = np.zeros(nd)
+        for j in range(nd):
+            if deadzone > 0:
+                keep = np.abs(vsig[:, j]) >= deadzone
+                if np.count_nonzero(keep) < 30 or not (vsig[keep, j] > 0).any() or not (vsig[keep, j] < 0).any():
+                    keep = np.ones(N, dtype=bool)
+            else:
+                keep = np.ones(N, dtype=bool)
+            keep_masks.append(keep)
+            fv_energy[j] = float(np.sum(vel[keep, j] ** 2))
+
+        alpha = float(opt.get("frictionFvRegularizationRelative", 0.0))
+        lam = alpha * float(np.median(fv_energy)) if alpha > 0 else float(opt.get("frictionFvRegularization", 0.0))
+        fv_ap = np.array([m.tree.joints[m.tree.dof_joint_ids[j]].damping for j in range(nd)])
+
+        self.postid_friction = {"Fc": np.zeros(nd), "Fv": np.zeros(nd), "off": np.zeros(nd)}
+        for j in range(nd):
+            keep = keep_masks[j]
+            A = np.column_stack([sign[keep, j], vel[keep, j], np.ones(np.count_nonzero(keep))])
+            b = residual2d[keep, fb + j]
+            if lam > 0:
+                w = np.sqrt(lam)
+                A = np.vstack((A, [0.0, w, 0.0]))
+                b = np.append(b, w * fv_ap[j])
+            fc, fv, off = np.linalg.lstsq(A, b, rcond=None)[0]
+            self.postid_friction["Fc"][j] = fc
+            self.postid_friction["Fv"][j] = max(fv, 0.0)
+            self.postid_friction["off"][j] = off
+
+        if (
+            opt.get("identifyFrictionSimultaneously", False)
+            and opt["identifySymmetricVelFriction"]
+            and opt.get("stribeckVelocity", 0) == 0
+            and len(m.xStd) == m.num_all_params
+        ):
+            fs = m.friction_params_start
+            m.xStd[fs : fs + nd] = self.postid_friction["Fc"]
+            m.xStd[fs + nd : fs + 2 * nd] = self.postid_friction["Fv"]
+            m.xStd[fs + 2 * nd : fs + 3 * nd] = self.postid_friction["off"]
+
+    # ------------------------------------------------------------------
+    def estimateParameters(self, reuse_regressors: bool = False) -> None:
         """Full estimation flow (reference identifier.py:857-977).
         Per-stage wall-clock lands in self.stage_times (regressor /
         estimation / sdp / reporting) for observability and the bench's
-        per-stage breakdown."""
+        per-stage breakdown. `reuse_regressors` skips the regressor pass
+        when the model still holds this Data's regressors or Grams from
+        an earlier pass (a sweep over estimation options on one
+        recording, as the CAD study's modes)."""
         import time as _time
 
         opt = self.opt
         m = self.model
-        if opt["useEssentialParams"]:
-            raise not_ported("useEssentialParams (essential parameters)")
-        if opt.get("postIdentifyFriction", 0):
-            raise not_ported("postIdentifyFriction (friction refit)")
         if self.data.num_used_samples <= m.num_identified_params * 2 and not opt.get(
             "selectingBlocks", 0
         ):
@@ -480,45 +730,61 @@ class Identification:
             self.stage_times[name] = self.stage_times.get(name, 0.0) + now - _t
             _t = now
 
-        m.computeRegressors(self.data)
+        if not (reuse_regressors and getattr(m, "data", None) is self.data
+                and m.tau is not None):
+            m.computeRegressors(self.data)
         _mark("regressor_gram")
 
-        if opt["floatingBase"] and opt.get("useBaseWrenchForBaseParams", 0):
-            self.identifyBaseParameters(*self._extractBaseWrenchRows())
-        else:
+        if opt["useEssentialParams"]:
             self.identifyBaseParameters()
-        _mark("ols_wls")
-
-        if opt["constrainToConsistent"] and self.sdp is not None:
+            _mark("ols_wls")
+            self.findBaseEssentialParameters()
             if opt["useAPriori"]:
                 self.getBaseParamsFromParamError()
-            self.sdp.initSDP_LMIs(self)
-            if opt["identifyClosestToCAD"]:
-                self.sdp.identifyFeasibleStandardParameters(self)
-                if not np.allclose(m.xStd, m.xStdModel[m.identified_params]):
-                    m.xBase = (
-                        m.Binv @ m.xStd
-                        if opt["useBasisProjection"]
-                        else m.K @ m.xStd
-                    )
-                    self.sdp.findFeasibleStdFromFeasibleBase(self, m.xBase)
-            else:
-                if opt["estimateWith"] == "std_direct":
-                    self.sdp.identifyFeasibleStandardParametersDirect(self)
-                else:
-                    self.sdp.identifyFeasibleStandardParameters(self)
-                m.xBase = (
-                    m.Binv @ m.xStd if opt["useBasisProjection"] else m.K @ m.xStd
-                )
-            _mark("sdp")
+            self.findStdFromBaseEssParameters()
+            self.identifyStandardEssentialParameters()
+            _mark("essential")
         else:
-            if opt["estimateWith"] == "std_direct":
-                self.identifyStandardParametersDirect()
+            if opt["floatingBase"] and opt.get("useBaseWrenchForBaseParams", 0):
+                self.identifyBaseParameters(*self._extractBaseWrenchRows())
             else:
-                self.findStdFromBaseParameters()
+                self.identifyBaseParameters()
+            _mark("ols_wls")
+
+            if opt["constrainToConsistent"] and self.sdp is not None:
                 if opt["useAPriori"]:
                     self.getBaseParamsFromParamError()
-            _mark("std_recovery")
+                self.sdp.initSDP_LMIs(self)
+                if opt["identifyClosestToCAD"]:
+                    self.sdp.identifyFeasibleStandardParameters(self)
+                    if not np.allclose(m.xStd, m.xStdModel[m.identified_params]):
+                        m.xBase = (
+                            m.Binv @ m.xStd
+                            if opt["useBasisProjection"]
+                            else m.K @ m.xStd
+                        )
+                        self.sdp.findFeasibleStdFromFeasibleBase(self, m.xBase)
+                else:
+                    if opt["estimateWith"] == "std_direct":
+                        self.sdp.identifyFeasibleStandardParametersDirect(self)
+                    else:
+                        self.sdp.identifyFeasibleStandardParameters(self)
+                    m.xBase = (
+                        m.Binv @ m.xStd if opt["useBasisProjection"] else m.K @ m.xStd
+                    )
+                _mark("sdp")
+            else:
+                if opt["estimateWith"] == "std_direct":
+                    self.identifyStandardParametersDirect()
+                else:
+                    self.findStdFromBaseParameters()
+                    if opt["useAPriori"]:
+                        self.getBaseParamsFromParamError()
+                _mark("std_recovery")
+
+        if opt.get("postIdentifyFriction", 0):
+            if opt["floatingBase"] or opt.get("identifyFrictionSimultaneously", 0):
+                self._postIdentifyFriction()
 
         if m.YStd is None:
             # streaming: both reporting quantities (a-priori + identified)
@@ -531,6 +797,9 @@ class Identification:
             elif ew == "base":
                 Pb = m.B if opt["useBasisProjection"] else m.Pb
                 xs.append(np.asarray(Pb @ m.xBase, dtype=float))
+            elif ew == "base_essential" and hasattr(self, "xBase_essential"):
+                Pb = m.B if opt["useBasisProjection"] else m.Pb
+                xs.append(np.asarray(Pb @ self.xBase_essential, dtype=float))
             # split by the SAME per-mode gate estimateRegressorTorques
             # uses: modes with separate (host-added) friction materialize
             # their series; the rest are served by device stats — warming

@@ -9,16 +9,20 @@ pseudo-inertia), the feasible-std solve, the closest-to-CAD two-step
 refinement and direct-YStd variant.
 
 Port of flobaroid_tpu/identification/sdp.py: the constraint assembly,
-the quadratic (uniform / observability CAD-regularized) feasible-std
-solve, its direct-Gram variant and the closest-to-CAD refinement, with
-the affine PSD maps as numpy functions and the barrier solver
-(conic.QuadBarrierSolver) running in f64 on the model's device. The
-geometric log-det objective is not ported yet (ROADMAP.md, queue 1).
+the feasible-std solve with its three CAD-regularization modes, its
+direct-Gram variant and the closest-to-CAD refinement, with the affine
+PSD maps as numpy functions and the barrier solvers of conic.py running
+in f64 on the model's device. The geometric objective (`GeometricObjective`)
+carries its gradient and Hessian in closed form: each divergence term is
+tr(Q) - logdet(Q) - 4 with Q(x) = W P(x) W affine in x, so its
+derivatives are the traces the barrier core assembles for -logdet M_k,
+batched over the regularized links (the JAX package differentiates a
+Python loop over the links with jax.grad and jax.hessian).
 
 Differences from the reference (kept from the JAX package):
   * the cvxpy Schur-complement epigraph SDP becomes a plain quadratic
-    objective minimized by the log-barrier Newton solver in conic.py —
-    no external conic solver,
+    (+ optional log-det divergence) objective minimized by the
+    log-barrier Newton solver in conic.py — no external conic solver,
   * exact parameter pins (dontChangeParams / noChange links) are
     eliminated from the decision space instead of encoded as equal
     upper/lower bounds (an interior-point method needs a nonempty
@@ -37,8 +41,10 @@ from typing import Any
 import numpy as np
 import numpy.linalg as la
 import scipy.linalg as sla
+import torch
 
 from ..models.geometry import link_bounding_box
+from ..utils.helpers import pseudo_inertia
 from . import conic
 
 
@@ -99,6 +105,65 @@ def pseudo_inertia_map(fixed_lookup, link: int):
     return P
 
 
+class GeometricObjective:
+    """f(x) = ||C x - d||^2 + sum_k w_k D_k(x), the torque residual plus
+    the whitened log-det Bregman divergence of each regularized link's
+    pseudo-inertia from its a-priori value:
+
+        D_k(x) = tr(Q_k) - logdet(Q_k) - 4,   Q_k(x) = W_k P_k(x) W_k,
+
+    with Q_k = Q0[k] + sum_v x[idx[k, v]] F[k, :, :, v] affine in x. The
+    6x6 spatial-inertia cone does NOT imply the 4x4 pseudo-inertia is PD
+    (the triangle inequality on the rotational inertia is not enforced),
+    so Q can go indefinite inside the feasible set: where det Q <= 0 the
+    term reads 1e6 with zero gradient (a finite penalty, not
+    tr - log|det|, which would REWARD it); the barrier line search then
+    steps around the region. f64 tensors on one device; `__call__` takes
+    a leading batch axis."""
+
+    def __init__(self, C, d, weights, Q0, F, idx, device):
+        def t(a, dtype=torch.float64):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        self.C, self.d = t(C), t(d)
+        self.hess_quad = 2.0 * self.C.T @ self.C
+        self.w, self.Q0, self.F = t(weights), t(Q0), t(F)  # (K,), (K,4,4), (K,4,4,nv)
+        self.idx = t(idx, torch.int64)  # (K, nv) positions in x
+
+    def _Q(self, x):
+        return self.Q0 + torch.einsum("kabv,...kv->...kab", self.F, x[..., self.idx])
+
+    def __call__(self, x):
+        e = x @ self.C.T - self.d
+        Q = self._Q(x)
+        sign, logabsdet = torch.linalg.slogdet(Q)
+        tr = torch.diagonal(Q, dim1=-2, dim2=-1).sum(dim=-1)
+        D = torch.where(sign > 0, tr - logabsdet - 4.0, torch.full_like(tr, 1e6))
+        return (e * e).sum(dim=-1) + (self.w * D).sum(dim=-1)
+
+    def grad_hess(self, x):
+        """Gradient (n,) and Hessian (n, n) at x (n,):
+            d/dx_v  D_k = tr(F_kv) - tr(Q_k^-1 F_kv)
+            d2/dx_vw D_k = tr(Q_k^-1 F_kv Q_k^-1 F_kw)
+        over each link's own columns, scatter-added; zero where det Q_k <= 0."""
+        g = 2.0 * self.C.T @ (self.C @ x - self.d)
+        H = self.hess_quad.clone()
+        Q = self._Q(x)
+        sign, _ = torch.linalg.slogdet(Q)
+        Qinv, _ = torch.linalg.inv_ex(Q)
+        wk = torch.where(sign > 0, self.w, torch.zeros_like(self.w))  # (K,)
+        Qinv = torch.where((sign > 0)[:, None, None], Qinv, torch.zeros_like(Qinv))
+        S = torch.einsum("kab,kbcv->kacv", Qinv, self.F)  # Q^-1 F_v
+        trF = torch.diagonal(self.F, dim1=1, dim2=2).sum(dim=-1)  # (K, nv)
+        gk = wk[:, None] * (trF - torch.diagonal(S, dim1=1, dim2=2).sum(dim=-1))
+        Hk = wk[:, None, None] * torch.einsum("kabv,kbaw->kvw", S, S)
+        g.index_add_(0, self.idx.reshape(-1), gk.reshape(-1))
+        r = self.idx[:, :, None].expand(Hk.shape).reshape(-1)
+        c = self.idx[:, None, :].expand(Hk.shape).reshape(-1)
+        H.index_put_((r, c), Hk.reshape(-1), accumulate=True)
+        return g, H
+
+
 class SDP:
     def __init__(self, idf):
         self.idf = idf
@@ -110,13 +175,19 @@ class SDP:
         # KKT certificate of the most recent solve: duality gap, final
         # Newton decrement, max constraint violation
         self.last_info: dict | None = None
+        self._geo_info: dict | None = None
         # persistent across initSDP_LMIs: solvers keyed by the constraint
         # STRUCTURE (repeated identifications of the same robot/options
         # reuse one solver and its warm start)
         self._solver_cache: dict = {}
 
     def _solver_info(self) -> dict | None:
-        """Certificate of the solve that just returned."""
+        """Certificate of the solve that just returned: the geometric path
+        fills self._geo_info via conic.solve(info=...); the quadratic
+        paths read the last-used solver's last_info."""
+        if self._geo_info is not None:
+            info, self._geo_info = self._geo_info, None
+            return info
         s = getattr(self, "_last_solver", None)
         return getattr(s, "last_info", None)
 
@@ -433,6 +504,53 @@ class SDP:
         med = float(np.median(pos)) if pos.size else 1.0
         return np.clip(obs / med, 0.1, 100.0)
 
+    def _geometric_terms(self, obs_w=None):
+        """Whitened log-det Bregman divergence terms per free full link
+        (reference sdp.py:367-448), probed into stacked arrays: (weights
+        (K,), Q0 (K,4,4), F (K,4,4,10), idx (K,10)) with
+        Q_k(x) = Q0[k] + sum_v x[idx[k, v]] F[k, :, :, v], or None when no
+        link is regularized."""
+        idf = self.idf
+        m = idf.model
+        if idf.opt["identifyGravityParamsOnly"]:
+            return None
+        reg_links = [
+            i
+            for i in range(m.num_links)
+            if i not in self.pinned_links
+            and all(
+                p in self.pos_in_free for p in range(i * 10, i * 10 + 10)
+            )
+        ]
+        if not reg_links:
+            return None
+        base = float(idf.opt.get("geometricRegularizationFactor", 1.0)) / len(reg_links)
+        eye = np.eye(len(self.free_params))
+        weights, Q0s, Fs, idxs = [], [], [], []
+        for i in reg_links:
+            P0 = pseudo_inertia(m.xStdModel[i * 10 : i * 10 + 10])
+            evals, evecs = la.eigh(P0)
+            if float(evals.min()) <= 1e-9:
+                continue
+            W = evecs @ np.diag(1.0 / np.sqrt(evals)) @ evecs.T
+            Pmap = pseudo_inertia_map(self._lookup, i)
+            # the map is affine and touches the link's own 10 (free)
+            # parameters only: probe those columns
+            cols = [self.pos_in_free[p] for p in range(i * 10, i * 10 + 10)]
+            Pz = Pmap(np.zeros(len(eye)))
+            Q0s.append(W @ Pz @ W)
+            Fs.append(np.stack([W @ (Pmap(eye[c]) - Pz) @ W for c in cols], axis=-1))
+            idxs.append(cols)
+            w = base
+            if obs_w is not None:
+                w *= float(
+                    np.mean([obs_w[self.pos_in_idable[p]] for p in range(i * 10, i * 10 + 10)])
+                )
+            weights.append(w)
+        if not weights:
+            return None
+        return np.asarray(weights), np.stack(Q0s), np.stack(Fs), np.asarray(idxs)
+
     # ------------------------------------------------------------------
     def identifyFeasibleStandardParameters(self, idf) -> None:
         """Feasible std params minimizing the (projected) torque residual
@@ -483,6 +601,7 @@ class SDP:
         reg_mode = opt.get("cadRegularizationMode", "uniform")
         rows = [R1_K]
         targets = [rho1 - contacts]
+        geo_terms = None
         if opt["useRegressorRegularization"]:
             if reg_mode == "observability":
                 obs_w = self._observability_weights(R1_K)
@@ -491,9 +610,14 @@ class SDP:
                 rows.append(Wrow)
                 targets.append(Wrow @ np.asarray([m.xStdModel[p] for p in self.idable_params]))
             elif reg_mode == "geometric":
-                raise NotImplementedError(
-                    "cadRegularizationMode='geometric' (the log-det SDP) is not "
-                    "ported to flobaroid_tpu_torch yet (ROADMAP.md, queue 1)")
+                # reference key geometricObservabilityWeighting
+                # (sdp.py:379,413): scale each link's divergence by its
+                # parameters' observability — the reference's best
+                # walkman decomposition (geo+obs, analysis_findings.md)
+                gow = None
+                if opt.get("geometricObservabilityWeighting", 0):
+                    gow = self._observability_weights(R1_K)
+                geo_terms = self._geometric_terms(obs_w=gow)
             else:
                 p_nid = sorted(
                     set(m.non_id).difference(self.delete_cols).intersection(m.identified_params)
@@ -536,10 +660,46 @@ class SDP:
             print(f"a-priori parameters are "
                   f"{'feasible' if ok else 'INFEASIBLE'} for the "
                   f"consistency constraints")
-        x, status = self._get_solver().solve_quadratic(
-            self._x0_free(), 2.0 * C_free.T @ C_free, -2.0 * C_free.T @ d_eff,
-            float(d_eff @ d_eff)
-        )
+        if geo_terms is not None:
+            # the divergence terms are O(1): bring the residual rows to the
+            # same scale, the norm of the base solution's torque residual
+            if m.YBase is None:
+                # the streamed aggregates live in a-priori-ERROR space
+                # under useAPriori while m.xBase is absolute by now
+                # (getBaseParamsFromParamError ran) — evaluate the
+                # residual with the error-space base vector, which equals
+                # ||tau_meas - cf - Y_base xBase|| exactly
+                xB = m.xBase - (m.xBaseModel if opt["useAPriori"] else 0.0)
+                rho2 = float(
+                    m.tau_sq - 2 * m.tau_cf + m.cf_sq
+                    - 2 * xB @ (m.g_base - m.g_cf_base)
+                    + xB @ (m.G_base @ xB)
+                )
+            else:
+                rho2 = float(
+                    la.norm(m.torques_stack - m.contactForcesSum - m.YBase @ m.xBase) ** 2
+                )
+            scale = np.sqrt(rho2) if rho2 > 0 else 1.0
+            objective = GeometricObjective(
+                C_free / scale, d_eff / scale, *geo_terms, device=m.device)
+            prob = conic.BarrierProblem(
+                objective=objective,
+                A=self.A,
+                b=self.b,
+                psd_maps=self.psd_maps,
+                psd_eps=self.epsilon_safemargin,
+                obj_grad_hess=objective.grad_hess,
+            )
+            self._geo_info = {}
+            x, status = conic.solve(
+                prob, self._x0_free(), verbose=opt["verbose"] > 1,
+                info=self._geo_info, device=m.device,
+            )
+        else:
+            x, status = self._get_solver().solve_quadratic(
+                self._x0_free(), 2.0 * C_free.T @ C_free, -2.0 * C_free.T @ d_eff,
+                float(d_eff @ d_eff)
+            )
         self.last_status = status
         self.last_info = self._solver_info()
         if status.startswith("optimal"):

@@ -2,7 +2,8 @@
 
 The port's own copy of flobaroid_tpu/models/urdf.py (numpy and xml
 only), cut to what the port calls: the parser, the tree and its
-topology, `rpy_to_matrix` and the regressor-XML joint order.
+topology, `rpy_to_matrix`, the regressor-XML joint order and the writer
+of identified parameters back into a URDF copy.
 
 Replaces the reference's use of the iDynTree C++ ModelLoader
 (reference: identification/model.py:60-67) with a self-contained
@@ -461,3 +462,71 @@ def joint_names_from_regressor_xml(path: str) -> list[str]:
     with open(path) as f:
         tree = ET.fromstring(f.read())
     return [el.text or "" for el in tree.iter() if el.tag == "joint"]
+
+
+def replace_params_in_urdf(
+    input_path: str,
+    output_path: str,
+    new_params: np.ndarray,
+    link_names: list[str],
+    friction: dict[str, dict[str, float]] | None = None,
+) -> None:
+    """Write identified standard parameters back into a URDF copy.
+
+    new_params: (10*L,) in the standard link-frame layout. The COM-frame
+    inertia written out is recovered via the inverse parallel-axis shift.
+    Mirrors helpers.URDFHelpers.replaceParamsInURDF in the reference.
+    """
+    tree = ET.parse(input_path)
+    root = tree.getroot()
+    by_name = {name: i for i, name in enumerate(link_names)}
+    for el in root.findall("link"):
+        name = el.get("name")
+        if name not in by_name:
+            continue
+        p = new_params[by_name[name] * 10 : by_name[name] * 10 + 10]
+        m = float(p[0])
+        inertial = el.find("inertial")
+        if inertial is None:
+            if m == 0.0:
+                continue
+            inertial = ET.SubElement(el, "inertial")
+        com = (p[1:4] / m) if m > 1e-12 else np.zeros(3)
+        I_origin = np.array(
+            [
+                [p[4], p[5], p[6]],
+                [p[5], p[7], p[8]],
+                [p[6], p[8], p[9]],
+            ]
+        )
+        I_com = I_origin - m * (np.dot(com, com) * np.eye(3) - np.outer(com, com))
+        mass_el = inertial.find("mass")
+        if mass_el is None:
+            mass_el = ET.SubElement(inertial, "mass")
+        mass_el.set("value", repr(m))
+        origin_el = inertial.find("origin")
+        if origin_el is None:
+            origin_el = ET.SubElement(inertial, "origin")
+        origin_el.set("xyz", " ".join(repr(float(x)) for x in com))
+        origin_el.set("rpy", "0 0 0")
+        inertia_el = inertial.find("inertia")
+        if inertia_el is None:
+            inertia_el = ET.SubElement(inertial, "inertia")
+        inertia_el.set("ixx", repr(float(I_com[0, 0])))
+        inertia_el.set("ixy", repr(float(I_com[0, 1])))
+        inertia_el.set("ixz", repr(float(I_com[0, 2])))
+        inertia_el.set("iyy", repr(float(I_com[1, 1])))
+        inertia_el.set("iyz", repr(float(I_com[1, 2])))
+        inertia_el.set("izz", repr(float(I_com[2, 2])))
+    if friction:
+        for el in root.findall("joint"):
+            jn = el.get("name")
+            if jn in friction:
+                dyn = el.find("dynamics")
+                if dyn is None:
+                    dyn = ET.SubElement(el, "dynamics")
+                if "damping" in friction[jn]:
+                    dyn.set("damping", repr(float(friction[jn]["damping"])))
+                if "friction" in friction[jn]:
+                    dyn.set("friction", repr(float(friction[jn]["friction"])))
+    tree.write(output_path, xml_declaration=True)

@@ -1,4 +1,5 @@
-"""Host-side helpers: friction sign series and the torque error metric.
+"""Host-side helpers: friction sign series, physical-consistency checks
+and the torque error metrics.
 
 The port's own copy of the functions of flobaroid_tpu/utils/helpers.py
 (numpy and scipy only) that the port calls.
@@ -41,6 +42,65 @@ def get_friction_sign_series(samples: dict[str, Any], opt: dict[str, Any]) -> np
     s = np.tanh(v / thresh)
     samples["friction_sign_series"] = s
     return s
+
+
+# ----------------------------------------------------------------------
+# parameter utilities
+# ----------------------------------------------------------------------
+def inertia_tensor_from_vec(v: np.ndarray) -> np.ndarray:
+    return np.array(
+        [[v[0], v[1], v[2]], [v[1], v[3], v[4]], [v[2], v[4], v[5]]]
+    )
+
+
+def pseudo_inertia(p10: np.ndarray) -> np.ndarray:
+    """4x4 pseudo-inertia (density-realizability) matrix of one link:
+    [[Sigma, h], [h^T, m]] with Sigma = 0.5*tr(I)*E - I.
+    PSD of this matrix <=> full physical consistency (Sousa 2014 /
+    Wensing 2017; used by the reference's SDP, identification/sdp.py:123-148).
+    """
+    m = p10[0]
+    h = p10[1:4]
+    I = inertia_tensor_from_vec(p10[4:10])
+    Sigma = 0.5 * np.trace(I) * np.eye(3) - I
+    P = np.zeros((4, 4))
+    P[:3, :3] = Sigma
+    P[:3, 3] = h
+    P[3, :3] = h
+    P[3, 3] = m
+    return P
+
+
+def spatial_inertia_6x6(p10: np.ndarray) -> np.ndarray:
+    """Symmetric 6x6 spatial-inertia block [[I, S(h)^T], [S(h), m E]] —
+    the PSD matrix the SDP enforces (reference sdp.py:123-148)."""
+    m = p10[0]
+    h = p10[1:4]
+    I = inertia_tensor_from_vec(p10[4:10])
+    S = np.array([[0, -h[2], h[1]], [h[2], 0, -h[0]], [-h[1], h[0], 0]])
+    return np.block([[I, S.T], [S, m * np.eye(3)]])
+
+
+def is_physical_consistent(
+    params: np.ndarray, num_links: int, eps: float = 0.0, triangle: bool = False
+) -> bool:
+    """Physical consistency per link (massless links pass).
+
+    triangle=False: PSD of the 6x6 spatial inertia [[I, S(h)^T],[S(h), mE]]
+    — the reference's 'NoTriangle' check and exactly what its SDP enforces
+    (helpers.checkPhysicalConsistencyNoTriangle / sdp.py:123-148).
+    triangle=True: PSD of the 4x4 pseudo-inertia (density realizability /
+    triangle inequality, the stronger Wensing condition; the reference's
+    showTriangleConsistency)."""
+    for i in range(num_links):
+        p = params[i * 10 : i * 10 + 10]
+        if np.all(np.abs(p) < 1e-12):
+            continue
+        M = pseudo_inertia(p) if triangle else spatial_inertia_6x6(p)
+        ev = np.linalg.eigvalsh(M)
+        if ev[0] < -max(eps, 1e-10 * max(1.0, abs(ev[-1]))):
+            return False
+    return True
 
 
 # ----------------------------------------------------------------------

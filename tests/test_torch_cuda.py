@@ -32,7 +32,8 @@ def cuda_device():
 
 @pytest.mark.parametrize("N,B,C", [(14000, 1, 80), (2000, 7, 82), (1037, 1, 37), (5, 3, 1),
                                    (13770, 30, 342), (60000, 7, 82), (777, 2, 201),
-                                   (4096, 36, 432), (1482, 36, 432), (72000, 1, 430)])
+                                   (4096, 36, 432), (1482, 36, 432), (72000, 1, 430),
+                                   (1000, 36, 432)])
 def test_gram_kernel_matches_plain(cuda_device, N, B, C):
     """Kernel vs the plain version in f64 on the same inputs: 1e-5 of
     max|G| (split-TF32 tensor cores, partials summed in f64), one launch

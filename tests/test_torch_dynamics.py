@@ -8,7 +8,12 @@ package's `load_urdf`. Tolerances: f64 1e-10 relative to max|Y|
 (both sides compute the same formulas in f64; differences are rounding
 order), f32 1e-5 (the port in f32 against the JAX engine in f64: f32
 rounding of the kinematic chain). Frame Jacobians (the walking
-contacts' J^T w) also on humanoid30, at 1e-12 in f64.
+contacts' J^T w) also on humanoid30, at 1e-12 in f64. The derived
+quantities (mass matrix, bias forces, frame velocity, total mass, centre
+of mass, F/T sensor wrench regressor) on the arm (fixed base) and
+humanoid30 (floating base): 1e-10 in f64; in f32 1e-4 of the largest
+entry on humanoid30, whose chain is deeper and whose base velocity
+enters the bias forces squared, 1e-5 on the arm.
 """
 
 import glob
@@ -231,3 +236,108 @@ def test_frame_jacobian_matches_jax(robots, robot, floating):
             Jt = te.frame_jacobian(li, torch.tensor(Q))
         assert tuple(Jt.shape) == (N, 6, 6 + tree.num_dofs)
         assert _rel(Jt.numpy(), np.asarray(Jj)) < 1e-12, li
+
+
+DERIVED = ["mass_matrix", "bias_forces", "frame_velocity", "total_mass", "com_world",
+           "sensor_wrench_regressor"]
+DERIVED_TOL = {("arm", torch.float64): 1e-10, ("humanoid30", torch.float64): 1e-10,
+               ("arm", torch.float32): 1e-5, ("humanoid30", torch.float32): 1e-4}
+_DERIVED_JAX = {}
+
+
+def _derived_jax(robots, robot, fn):
+    """The JAX engine's single-sample function vmapped over the seeded
+    samples, once per (robot, function): the arm with a fixed base,
+    humanoid30 floating."""
+    import jax
+
+    if (robot, fn) in _DERIVED_JAX:
+        return _DERIVED_JAX[(robot, fn)]
+    jtree, tree = robots[robot]
+    je = JaxEngine(jtree)
+    fl = robot == "humanoid30"
+    Q, V, A, BR, BV, BA = (jnp.asarray(a) for a in _inputs(tree, seed=7))
+    pi = jnp.asarray(tree.std_params())
+    li = tree.num_links - 1
+    sl = (0, tree.num_links // 2, li)
+    if fn == "mass_matrix":
+        out = (jax.vmap(lambda q, br: je.mass_matrix(pi, q, br, floating=True))(Q, BR) if fl
+               else jax.vmap(lambda q: je.mass_matrix(pi, q))(Q))
+    elif fn == "bias_forces":
+        out = (jax.vmap(lambda q, dq, br, bv: je.bias_forces(pi, q, dq, br, bv, floating=True))(
+            Q, V, BR, BV) if fl else jax.vmap(lambda q, dq: je.bias_forces(pi, q, dq))(Q, V))
+    elif fn == "frame_velocity":
+        if not fl:
+            BR, BV = jnp.broadcast_to(jnp.eye(3), (N, 3, 3)), jnp.zeros((N, 6))
+        out = jax.vmap(lambda q, dq, br, bv: je.frame_velocity(li, q, dq, br, bv))(Q, V, BR, BV)
+    elif fn == "total_mass":
+        out = je.total_mass(pi)
+    elif fn == "com_world":
+        out = (jax.vmap(lambda q, br: je.com_world(pi, q, br))(Q, BR) if fl
+               else jax.vmap(lambda q: je.com_world(pi, q))(Q))
+    else:
+        out = (jax.vmap(lambda *a: je.sensor_wrench_regressor(sl, *a))(Q, V, A, BR, BV, BA) if fl
+               else jax.vmap(lambda *a: je.sensor_wrench_regressor(sl, *a))(Q, V, A))
+    _DERIVED_JAX[(robot, fn)] = np.asarray(out)
+    return _DERIVED_JAX[(robot, fn)]
+
+
+def _derived_torch(tree, robot, fn, dtype):
+    te = DynamicsEngine(tree)
+    fl = robot == "humanoid30"
+    Q, V, A, BR, BV, BA = (torch.tensor(a, dtype=dtype) for a in _inputs(tree, seed=7))
+    pi = torch.tensor(tree.std_params(), dtype=dtype)
+    li = tree.num_links - 1
+    sl = (0, tree.num_links // 2, li)
+    if fn == "mass_matrix":
+        return te.mass_matrix(pi, Q, BR, floating=True) if fl else te.mass_matrix(pi, Q)
+    if fn == "bias_forces":
+        return (te.bias_forces(pi, Q, V, BR, BV, floating=True) if fl
+                else te.bias_forces(pi, Q, V))
+    if fn == "frame_velocity":
+        if not fl:
+            BR, BV = torch.eye(3, dtype=dtype).expand(N, 3, 3), torch.zeros((N, 6), dtype=dtype)
+        return te.frame_velocity(li, Q, V, BR, BV)
+    if fn == "total_mass":
+        return te.total_mass(pi)
+    if fn == "com_world":
+        return te.com_world(pi, Q, BR) if fl else te.com_world(pi, Q)
+    return (te.sensor_wrench_regressor(sl, Q, V, A, BR, BV, BA) if fl
+            else te.sensor_wrench_regressor(sl, Q, V, A))
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
+@pytest.mark.parametrize("robot", ["arm", "humanoid30"])
+@pytest.mark.parametrize("fn", DERIVED)
+def test_derived_quantities_match_jax(robots, fn, robot, dtype):
+    ref = _derived_jax(robots, robot, fn)
+    out = _derived_torch(robots[robot][1], robot, fn, dtype)
+    assert out.dtype == dtype and tuple(out.shape) == ref.shape
+    assert _rel(out.double().numpy(), ref) < DERIVED_TOL[(robot, dtype)]
+
+
+@pytest.mark.parametrize("robot", ["arm", "humanoid30", "mimic"])
+def test_mass_matrix_symmetric_and_consistent_with_inverse_dynamics(robots, robot):
+    """M(q) is symmetric positive semidefinite (a link without inertia
+    about its joint axis leaves a zero eigenvalue), and with zero base velocity
+    M(q) [base_acc; ddq] + bias(q, dq) equals the inverse dynamics
+    (floating base; the arm also with a fixed base)."""
+    _, tree = robots[robot]
+    te = DynamicsEngine(tree)
+    Q, V, A, BR, _, BA = (torch.tensor(a) for a in _inputs(tree, seed=8))
+    BV = torch.zeros_like(BA)
+    pi = torch.tensor(tree.std_params())
+    M = te.mass_matrix(pi, Q, BR, floating=True)
+    assert tuple(M.shape) == (N, 6 + tree.num_dofs, 6 + tree.num_dofs)
+    assert float((M - M.transpose(1, 2)).abs().max()) < 1e-12 * float(M.abs().max())
+    assert float(torch.linalg.eigvalsh(M).min()) > -1e-12 * float(M.abs().max())
+    tau = te.inverse_dynamics_batch(pi, Q, V, A, BR, BV, BA)
+    acc = torch.cat([BA, A], dim=1)
+    rebuilt = (M @ acc[..., None])[..., 0] + te.bias_forces(pi, Q, V, BR, BV, floating=True)
+    assert _rel(rebuilt.numpy(), tau.numpy()) < 1e-10
+    if robot == "arm":
+        Mf = te.mass_matrix(pi, Q)
+        assert _rel(Mf.numpy(), M[:, 6:, 6:].numpy()) < 1e-12
+        rebuilt = (Mf @ A[..., None])[..., 0] + te.bias_forces(pi, Q, V)
+        assert _rel(rebuilt.numpy(), te.inverse_dynamics_batch(pi, Q, V, A).numpy()) < 1e-10

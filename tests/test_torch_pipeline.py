@@ -8,7 +8,10 @@ option variants on 400 states. With
 randomSamples=600 both read the checked-in structural cache, so both
 use one projection (options without a cached structural Gram carry the
 JAX projection over with convert.py). Also: the port loads neither JAX nor PyYAML, and its
-config defaults equal the JAX package's.
+config defaults equal the JAX package's. Essential parameters (the
+deletion order decides the result, so the index sets must be equal), the
+post-identification friction refit and the block scoring run on 800
+noisy samples (numpy seed 5) through both packages.
 """
 
 import os
@@ -21,11 +24,13 @@ import pytest
 import torch
 
 from bench import build_samples
+from test_identification import synth_samples
 from flobaroid_tpu.identification.identifier import Identification as JaxIdentification
 from flobaroid_tpu.utils import config as jax_config
 from flobaroid_tpu.utils.helpers import is_physical_consistent
 from flobaroid_tpu_torch.convert import state_from_jax_model
-from flobaroid_tpu_torch.identification.identifier import Identification
+from flobaroid_tpu_torch.identification import cad_study
+from flobaroid_tpu_torch.identification.identifier import Identification, score_blocks
 from flobaroid_tpu_torch.utils import config as torch_config
 
 torch.set_num_threads(2)
@@ -148,10 +153,10 @@ idf.data.init_from_data(samples)
 }
 
 
-def _assert_port_loads_neither_jax_nor_yaml(tmp_path, case):
+def _assert_port_loads_neither_jax_nor_yaml(tmp_path, case, **over):
     """A CPU identify in a fresh process loads no jax, no yaml and no
     flobaroid_tpu module."""
-    src, opt = (ARM_URDF, BENCH) if case == "arm" else (H30_URDF, WALK)
+    src, opt = (ARM_URDF, {**BENCH, **over}) if case == "arm" else (H30_URDF, WALK)
     urdf = tmp_path / os.path.basename(src)
     shutil.copy(src, urdf)
     shutil.copy(src + ".regressor.npz", str(urdf) + ".regressor.npz")
@@ -182,6 +187,14 @@ def test_port_loads_neither_jax_nor_yaml(tmp_path):
     _assert_port_loads_neither_jax_nor_yaml(tmp_path, "arm")
 
 
+def test_port_loads_neither_jax_nor_yaml_geometric(tmp_path):
+    """The same for a geometric (log-det SDP) identify with essential
+    parameters' and the friction refit's modules on the path."""
+    _assert_port_loads_neither_jax_nor_yaml(
+        tmp_path, "arm", cadRegularizationMode="geometric", identifyFrictionSimultaneously=1,
+        postIdentifyFriction=1)
+
+
 @pytest.mark.timeout(120)
 def test_port_loads_neither_jax_nor_yaml_walking(tmp_path):
     """The same for the floating-base humanoid30 walking-contact identify
@@ -207,11 +220,167 @@ def test_unported_branches_raise(arm_copy, monkeypatch):
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Identification(jax_config.load_config(None, overrides=BENCH), arm_copy)
+    # the one entry point that still raises: the suspended-base simulator
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cad_study.generate_suspended_measurements(arm_copy, "unused.npz")
+    # essential parameters no longer do (value parity: the tests below)
     idf = Identification(jax_config.load_config(None, overrides={**BENCH, "useEssentialParams": 1}),
                          arm_copy, device="cpu")
     idf.data.init_from_data(build_samples(arm_copy, n=400))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    idf.estimateParameters()
+    assert "essential" in idf.stage_times and len(idf.baseEssentialIdx) > 0
+
+
+def _noisy_pair(urdf, fric=None, **kw):
+    """(JAX, port) identifies of 800 noisy samples of the arm (measured
+    torques, not simulated ones), the port on the JAX projection."""
+    samples, _ = synth_samples(urdf, n=800, noise=0.05, seed=5, fric=fric)
+    opt = {**BENCH, "simulateTorques": 0, "computeDtype": "float64", **kw}
+    j = JaxIdentification(jax_config.load_config(None, overrides=opt), urdf)
+    t = Identification(jax_config.load_config(None, overrides=opt), urdf, device="cpu")
+    t.model.load_state(state_from_jax_model(j.model))
+    for idf in (j, t):
+        idf.data.init_from_data(dict(samples))
         idf.estimateParameters()
+    return j, t
+
+
+ESSENTIAL = {
+    "streamed": dict(),
+    "materialized": dict(materializeRegressor=1),
+    "streamed_apriori": dict(useAPriori=1),
+    "materialized_dependents": dict(materializeRegressor=1, useDependents=1),
+    "base_essential": dict(estimateWith="base_essential"),
+    "base_essential_materialized": dict(estimateWith="base_essential", materializeRegressor=1),
+}
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("variant", list(ESSENTIAL))
+def test_essential_parameters_match_jax(arm_copy, variant):
+    """The same essential index set (the deletion order decides it), the
+    same essential base vector, std essential columns and xStd, streamed
+    (from the Grams and the device residual powers) and materialized;
+    1e-8 relative (numpy on both sides, rounding order only)."""
+    j, t = _noisy_pair(arm_copy, useEssentialParams=1, **ESSENTIAL[variant])
+    assert t.baseEssentialIdx == j.baseEssentialIdx
+    assert t.baseNonEssentialIdx == j.baseNonEssentialIdx
+    assert 0 < t.num_essential_params == j.num_essential_params < t.model.num_base_params
+    assert _rel(t.xBase_essential, j.xBase_essential) <= 1e-8
+    assert np.array_equal(t.stdEssentialIdx, j.stdEssentialIdx)
+    assert _rel(t.xStdEssential, j.xStdEssential) <= 1e-8
+    assert _rel(t.p_sigma_x, j.p_sigma_x) <= 1e-6
+    assert _rel(t.model.xStd, j.model.xStd) <= 1e-8
+    assert _rel(t.model.xBase, j.model.xBase) <= 1e-8
+    assert abs(t.res_error - j.res_error) <= 1e-8 * j.res_error
+    assert set(t.stage_times) == set(j.stage_times) and "essential" in t.stage_times
+
+
+FRICTION = {
+    "streamed": dict(),
+    "materialized": dict(materializeRegressor=1),
+    "dead_zone_and_prior": dict(frictionSwerversDeadZone=0.5,
+                                frictionFvRegularizationRelative=0.05),
+}
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("variant", list(FRICTION))
+def test_friction_refit_matches_jax(arm_copy, variant):
+    """postIdentifyFriction: Fc / Fv / offset of the per-joint refit at
+    1e-8 relative, Fv >= 0, and the write-back into xStd's friction
+    slots."""
+    fric = {"Fc": np.linspace(0.2, 0.5, 7), "Fv": np.linspace(0.05, 0.3, 7)}
+    j, t = _noisy_pair(arm_copy, fric=fric, identifyFrictionSimultaneously=1,
+                       identifySymmetricVelFriction=1, postIdentifyFriction=1, **FRICTION[variant])
+    for k in ("Fc", "Fv", "off"):
+        assert np.abs(t.postid_friction[k] - j.postid_friction[k]).max() <= 1e-8, k
+    assert np.all(t.postid_friction["Fv"] >= 0)
+    np.testing.assert_allclose(t.postid_friction["Fv"], fric["Fv"], atol=0.1)
+    m, nd = t.model, t.model.num_dofs
+    fs = m.friction_params_start
+    assert np.array_equal(m.xStd[fs:fs + nd], t.postid_friction["Fc"])
+    assert np.array_equal(m.xStd[fs + nd:fs + 2 * nd], t.postid_friction["Fv"])
+    assert np.array_equal(m.xStd[fs + 2 * nd:fs + 3 * nd], t.postid_friction["off"])
+    assert _rel(m.xStd[fs:], j.model.xStd[fs:]) <= 1e-8
+    assert abs(t.res_error - j.res_error) <= 1e-6 * j.res_error
+
+
+@pytest.mark.parametrize("fn", ["param_stddev", "wls_weights", "std_essential",
+                                "std_essential_gram"])
+def test_least_squares_primitives_match_jax(fn):
+    """The port's copies of the least-squares primitives on random inputs
+    (numpy on both sides: equal to rounding)."""
+    from flobaroid_tpu.identification import least_squares as jls
+    from flobaroid_tpu_torch.identification import least_squares as tls
+
+    rng = np.random.default_rng(9)
+    Y = rng.standard_normal((60, 8))
+    x = rng.standard_normal(8)
+    tau = Y @ x + 0.01 * rng.standard_normal(60)
+    ess = np.where(np.arange(8) % 3 == 0, 0.0, rng.standard_normal(8))
+    args = dict(
+        param_stddev=(Y, x, tau.reshape(12, 5), (Y @ x).reshape(12, 5), 8),
+        wls_weights=(np.abs(rng.standard_normal(5)) + 0.1, 12),
+        std_essential=(Y, tau, ess, 5, x),
+        std_essential_gram=(Y.T @ Y, Y.T @ tau, ess, 5, x),
+    )[fn]
+    np.testing.assert_allclose(getattr(tls, fn)(*args), getattr(jls, fn)(*args), rtol=1e-12)
+    if fn == "std_essential_gram":  # the Gram form equals the regressor form
+        np.testing.assert_allclose(tls.std_essential_gram(*args),
+                                   tls.std_essential(Y, tau, ess, 5, x), rtol=1e-8)
+
+
+def _jax_cli_block_scoring(idf):
+    """The scoring loop of the JAX package's identify CLI (the root
+    identifier.py), on a JAX Identification."""
+    m = idf.model
+    m.computeRegressors(idf.data)
+    rows_per = m.num_dofs + m.fb
+    skip = int(idf.opt["skipSamples"]) + 1
+    bs = int(idf.opt["blockSize"])
+    conds, link_conds, grams = [], [], []
+    for b in range(idf.data.num_blocks()):
+        u0 = -(-(b * bs) // skip)
+        u1 = -(-((b + 1) * bs) // skip)
+        Yb = m.YBase[u0 * rows_per:min(u1 * rows_per, m.YBase.shape[0])]
+        conds.append(float(np.linalg.cond(Yb)) if len(Yb) else 1e16)
+        grams.append(Yb.T @ Yb)
+        link_conds.append(m.getSubregressorsConditionNumbers(YBase=Yb))
+    idf.data.select_blocks_from_stats(conds, link_conds, grams)
+    return conds, link_conds
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("skip", [0, 2])
+def test_block_scoring_matches_jax(arm_copy, skip):
+    """score_blocks against the JAX CLI's loop: the same per-block and
+    per-link condition numbers (1e-8) and the same selected blocks, also
+    with skipSamples (block edges on used-sample indices); streamed
+    regressors raise as in the CLI."""
+    samples, _ = synth_samples(arm_copy, n=900, noise=0.05, seed=5)
+    # a poorly excited stretch, so the blocks differ in quality
+    samples["velocities"][300:500] *= 0.05
+    samples["accelerations"][300:500] *= 0.05
+    opt = {**BENCH, "simulateTorques": 0, "computeDtype": "float64", "materializeRegressor": 1,
+           "blockSize": 100, "selectBestPerenctage": 50, "skipSamples": skip}
+    j = JaxIdentification(jax_config.load_config(None, overrides=opt), arm_copy)
+    t = Identification(jax_config.load_config(None, overrides=opt), arm_copy, device="cpu")
+    t.model.load_state(state_from_jax_model(j.model))
+    for idf in (j, t):
+        idf.data.init_from_data(dict(samples))
+    cj, lj = _jax_cli_block_scoring(j)
+    ct, lt = score_blocks(t)
+    assert len(ct) == len(cj) == 9
+    assert _rel(ct, cj) <= 1e-8 and _rel(np.log(lt), np.log(lj)) <= 1e-8
+    assert t.data.selected_blocks == j.data.selected_blocks
+    assert 0 < len(t.data.selected_blocks) < 9
+    streamed = Identification(
+        jax_config.load_config(None, overrides={**opt, "materializeRegressor": 0}),
+        arm_copy, device="cpu")
+    streamed.data.init_from_data(dict(samples))
+    with pytest.raises(ValueError, match="materializeRegressor=1"):
+        score_blocks(streamed)
 
 
 def test_data_preprocessing_matches_jax():

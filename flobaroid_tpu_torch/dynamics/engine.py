@@ -191,12 +191,13 @@ class DynamicsEngine:
             p[:, lv["idx"]] = p[:, lv["par"]] + (Rpar @ pj[..., None])[..., 0]
         return R, p
 
-    def _world_kinematics(self, Q, DQ, DDQ, BR, BV, BA):
+    def _world_kinematics(self, Q, DQ, DDQ, BR, BV, BA, fk=None):
         """World-frame link poses, per-mjoint motion subspaces s (about
         the world origin) and link spatial velocities/accelerations V, A
-        (world coords, gravity folded in). All with a leading N axis."""
+        (world coords, gravity folded in). All with a leading N axis.
+        fk: `self.fk(Q)` when the caller already has it."""
         c = self._c(Q.dtype, Q.device)
-        Rb, pb = self.fk(Q)
+        Rb, pb = self.fk(Q) if fk is None else fk
         Rw = BR[:, None] @ Rb  # (N, L, 3, 3)
         pw = (BR[:, None] @ pb[..., None])[..., 0]  # (N, L, 3)
 
@@ -323,18 +324,19 @@ class DynamicsEngine:
 
     def inverse_dynamics_batch(
         self, pi, Q, DQ, DDQ, base_rot=None, base_vel=None, base_acc=None,
-        floating: bool | None = None,
+        floating: bool | None = None, fk=None,
     ):
         """RNEA joint torques (+ base wrench when floating), (N, rows).
 
         pi: (10L,) standard parameters. Computed from explicit spatial
         inertias (I a + v x* I v), not via the regressor, so the
         `regressor @ pi == inverse_dynamics` identity is a real
-        cross-check between two formulations."""
+        cross-check between two formulations. fk: `self.fk(Q)` when the
+        caller already has it (the suspended-base time loop)."""
         if floating is None:
             floating = base_rot is not None
         BR, BV, BA = self._default_base(Q, base_rot, base_vel, base_acc)
-        Rw, pw, s, V, A, mask = self._world_kinematics(Q, DQ, DDQ, BR, BV, BA)
+        Rw, pw, s, V, A, mask = self._world_kinematics(Q, DQ, DDQ, BR, BV, BA, fk=fk)
         w, vl, alpha, al = self._body_frame_va(Rw, pw, V, A)
         I6 = sp.inertia_matrix_from_params(pi.reshape(self.num_links, 10))  # (L, 6, 6)
         vb = torch.cat([w, vl], dim=-1)

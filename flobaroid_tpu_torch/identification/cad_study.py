@@ -17,12 +17,12 @@ test is the whitened log-det Bregman divergence on the pseudo-inertia
 
 Port of flobaroid_tpu/identification/cad_study.py: the study itself
 (`run_cad_study`, one `Identification` on the model's device serving all
-four modes), its table and the perturbed "real" model. Generating the
-suspended measurements needs the simulator, the suspended-base
-integrator and the measurement effect chain, which are not ported yet:
-`generate_suspended_measurements` raises until they are; the study runs
-on a recording made by the JAX package
-(examples/data/humanoid30_suspended_cad.npz).
+four modes), its table, the perturbed "real" model, and
+`generate_suspended_measurements` (the suspended-base integrator, the
+inverse dynamics and the measurement effect chain of
+simulation/simulator.py), which makes such a recording as the one
+checked in (examples/data/humanoid30_suspended_cad.npz, made by the JAX
+package).
 """
 
 from __future__ import annotations
@@ -86,6 +86,34 @@ def make_perturbed_real_urdf(
     return float(np.linalg.norm(noisy - pi) / np.linalg.norm(pi))
 
 
+def _excitation(tree, duration: float, freq: float, seed: int):
+    """Moderate multi-harmonic joint excitation within limits — the
+    conservative swing amplitudes of a real suspended experiment, not
+    the random-state excitation of the CI oracle (a too-well-excited
+    dataset makes every regularization mode equal)."""
+    nd = tree.num_dofs
+    lims = tree.joint_limits()
+    lo = np.array([lims[j]["lower"] for j in tree.dof_names])
+    hi = np.array([lims[j]["upper"] for j in tree.dof_names])
+    lo = np.where(np.isfinite(lo), lo, -np.pi)
+    hi = np.where(np.isfinite(hi), hi, np.pi)
+    mid, amp0 = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    t = np.arange(int(duration * freq)) / freq
+    rng = np.random.default_rng(seed)
+    Q = np.tile(mid, (len(t), 1))
+    V = np.zeros_like(Q)
+    A = np.zeros_like(Q)
+    for k in range(1, 4):
+        w = 2 * np.pi * (0.15 * k + 0.1 * rng.random(nd))
+        ph = rng.random(nd) * 2 * np.pi
+        a_k = 0.25 * amp0 / k
+        arg = w[None, :] * t[:, None] + ph[None, :]
+        Q += a_k * np.sin(arg)
+        V += a_k * w * np.cos(arg)
+        A += -a_k * w**2 * np.sin(arg)
+    return {"times": t, "positions": Q, "velocities": V, "accelerations": A}
+
+
 def generate_suspended_measurements(
     real_urdf: str,
     out_npz: str,
@@ -94,14 +122,39 @@ def generate_suspended_measurements(
     seed: int = 0,
     attachment_frame: str = "crane_ft",
     overrides: dict | None = None,
+    *,
+    device="cuda",
 ) -> dict:
-    """Simulate suspended-base measurements from the real model (crane
-    ball-joint base motion + RNEA torques + effect-chain noise). Needs
-    the port of the simulator, excitation/suspended.py and
-    simulation/effects.py (ROADMAP.md, queue 1, items 6-7)."""
-    from .identifier import not_ported
+    """Simulate suspended-base measurements from the real model: crane
+    ball-joint base motion (excitation/suspended.py) + RNEA torques +
+    effect-chain noise, on `device`. The saved npz follows the
+    measurements contract (reference simulator.py:298-317)."""
+    from ..models.urdf import load_urdf
+    from ..simulation.simulator import simulate_measurements
+    from ..utils.config import load_config
 
-    raise not_ported("generate_suspended_measurements (the suspended-base simulator)")
+    tree = load_urdf(real_urdf)
+    traj = _excitation(tree, duration, freq, seed)
+    cfg = load_config(None, overrides=dict(
+        floatingBase=1,
+        floatingBaseAttachment="suspended",
+        floatingBaseAttachmentFrame=attachment_frame,
+        suspendedDamping=500.0,
+        excitationFrequency=freq,
+        # keep the dominant corruption sources (friction, elasticity,
+        # ripple, sensor noise); drop the slow-drift effects that a real
+        # identification run would warm up / calibrate away
+        simulateCableForces=0, simulateGravityCompResidual=0,
+        simulateThermalDrift=0, simulateTimingJitter=0,
+        verbose=0,
+    ))
+    if overrides:
+        cfg.update(overrides)
+    cfg.update(urdf=real_urdf, num_dofs=tree.num_dofs,
+               jointNames=list(tree.dof_names))
+    meas = simulate_measurements(cfg, traj, interactive=False, device=device)
+    np.savez(out_npz, **meas)
+    return meas
 
 
 def study_identification(

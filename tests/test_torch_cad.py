@@ -338,10 +338,27 @@ def test_make_perturbed_real_urdf_matches_jax(tmp_path):
 
 
 def test_generate_suspended_measurements_is_not_ported(tmp_path):
-    """The one entry point of the study that still raises: it needs the
-    simulator, the suspended-base integrator and the effect chain."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cad_study.generate_suspended_measurements(H30_REAL, str(tmp_path / "m.npz"))
+    """The study's last entry point is ported (the name is kept from when
+    it raised): a 2 s recording of the suspended real model has the
+    measurement keys, 100 finite samples of 36 torque rows, a swinging
+    base, and is what the npz on disk holds. Value parity with the JAX
+    package: test_torch_simulation.py."""
+    from flobaroid_tpu_torch.simulation.simulator import MEASUREMENT_KEYS
+
+    out = tmp_path / "m.npz"
+    meas = cad_study.generate_suspended_measurements(H30_REAL, str(out), duration=2.0, seed=1,
+                                                     device="cpu")
+    assert set(meas) == MEASUREMENT_KEYS
+    assert meas["torques"].shape == (100, 36) and meas["positions"].shape == (100, 30)
+    assert all(np.all(np.isfinite(np.asarray(meas[k], dtype=float)))
+               for k in MEASUREMENT_KEYS - {"contacts"})
+    assert np.abs(meas["base_rpy"]).max() > 1e-3 and np.abs(meas["base_position"]).max() > 0.1
+    with np.load(out, allow_pickle=True) as f:
+        assert set(f.files) == MEASUREMENT_KEYS and np.array_equal(f["torques"], meas["torques"])
+    with pytest.MonkeyPatch.context() as m:  # the default device is the card: no CPU fallback
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cad_study.generate_suspended_measurements(H30_REAL, str(out), duration=2.0)
 
 
 @pytest.mark.parametrize("triangle", [False, True], ids=["spatial_6x6", "pseudo_inertia_4x4"])

@@ -21,7 +21,6 @@ from flobaroid_tpu.model import Model as JaxModel
 from flobaroid_tpu.utils.config import load_config
 from flobaroid_tpu_torch.convert import state_from_jax_model
 from flobaroid_tpu_torch.data import Data
-from flobaroid_tpu_torch.identification import cad_study
 from flobaroid_tpu_torch.identification.identifier import Identification
 from flobaroid_tpu_torch.model import Model
 from flobaroid_tpu_torch.ops import gram as tgram
@@ -187,9 +186,10 @@ def test_floating_structural_rank_and_column_space(tmp_path, dtype):
 
 def test_model_requires_a_device_and_fixed_base(arm_copy, monkeypatch):
     """The default device is the card: without one it raises, with no CPU
-    fallback. A floating base and the friction refit are ported; the
-    entry point that stays unported (generating the CAD study's suspended
-    measurements) raises, naming ROADMAP."""
+    fallback. A floating base and the friction refit are ported; what
+    stays unported on a model's path (the exact-mesh collision tier and
+    candidate sharding of the trajectory optimizer) raises, naming
+    ROADMAP."""
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -201,8 +201,11 @@ def test_model_requires_a_device_and_fixed_base(arm_copy, monkeypatch):
     idf.data.init_from_data(_samples())
     idf.estimateParameters()
     assert set(idf.postid_friction) == {"Fc", "Fv", "off"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cad_study.generate_suspended_measurements(arm_copy, "unused.npz")
+    from flobaroid_tpu_torch.excitation.optimizer import optimize_trajectory
+
+    for unported in (dict(collisionMode="convex"), dict(shardCandidates=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            optimize_trajectory(idf.model, {**idf.opt, **unported})
 
 
 def test_convert_carries_the_base_and_refuses_a_mismatch(arm_copy):

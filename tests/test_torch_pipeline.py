@@ -29,7 +29,6 @@ from flobaroid_tpu.identification.identifier import Identification as JaxIdentif
 from flobaroid_tpu.utils import config as jax_config
 from flobaroid_tpu.utils.helpers import is_physical_consistent
 from flobaroid_tpu_torch.convert import state_from_jax_model
-from flobaroid_tpu_torch.identification import cad_study
 from flobaroid_tpu_torch.identification.identifier import Identification, score_blocks
 from flobaroid_tpu_torch.utils import config as torch_config
 
@@ -220,9 +219,15 @@ def test_unported_branches_raise(arm_copy, monkeypatch):
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Identification(jax_config.load_config(None, overrides=BENCH), arm_copy)
-    # the one entry point that still raises: the suspended-base simulator
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cad_study.generate_suspended_measurements(arm_copy, "unused.npz")
+    # what still raises: the exact-mesh collision tier and candidate sharding
+    from flobaroid_tpu_torch.excitation.optimizer import optimize_trajectory
+    from flobaroid_tpu_torch.model import Model
+
+    opt = jax_config.load_config(None, overrides={**BENCH, "randomSamples": 600})
+    model = Model(opt, arm_copy, device="cpu")
+    for unported in (dict(collisionMode="convex"), dict(shardCandidates=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            optimize_trajectory(model, {**opt, **unported})
     # essential parameters no longer do (value parity: the tests below)
     idf = Identification(jax_config.load_config(None, overrides={**BENCH, "useEssentialParams": 1}),
                          arm_copy, device="cpu")

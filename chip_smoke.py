@@ -51,22 +51,37 @@ exits non-zero, printing no result):
      optimizer on the 7-DOF arm with the checked-in example configuration
      and bench.py's budget (64 candidates x 8 CEM generations, 8
      augmented-Lagrangian restarts of 600 Adam steps, 897 samples, capsule
-     collision constraints), held to: feasible, better than its start,
-     within 10 % of the JAX package's figure of record (the spread of
-     this optimization under rounding alone is 9 %), and the card's
-     first-generation evaluation within 1e-3 of the port on the CPU in
-     f64. The structural Gram at Model init is the leg's one kernel
-     launch (14 000 x 1 x 101 with the configuration's friction columns);
+     collision constraints, the result verified against exact convex
+     hulls), at optimizer seeds 0-4, held to: feasible (the mesh check
+     included), better than its start, the mean within 5 % of the JAX
+     package's mean over the same seeds, and the card's first-generation
+     evaluation within 1e-3 of the port on the CPU in f64. The structural
+     Gram at Model init is the leg's one kernel launch (14 000 x 1 x 101
+     with the configuration's friction columns). When no seed needed the
+     mesh back-off, it runs on the card with a stand-in geometry (the
+     arm, 157 samples): it must end verified, losing at most 5 % of the
+     D-optimality;
   7. suspended leg: the objective of the 30-DOF suspended humanoid
      (floating base hanging from `crane_ft`, the ball-joint integrator
      inside the differentiable chain): 12 candidates evaluated and one
      augmented-Lagrangian gradient for 2 restarts, finite, the values
-     within 1e-3 of the CPU in f64;
+     within 1e-3 of the CPU in f64; then the exact-mesh verifier at
+     humanoid30's full width (box geometry, 421 pairs) over those 12
+     candidates at every sample in one call on the card, the first two
+     again on the CPU (the port in f32): within 1e-4 m, identical
+     verdicts; and the plates and U-channel of tests/test_collision_mesh.py
+     (convex and full tiers, the native library built with g++);
   8. simulator leg: `generate_suspended_measurements` of the perturbed
      humanoid (40 s at 50 Hz, 2000 samples, seed 0) on the card, held
      against the same call on the CPU in f64, then identified with the
      geometric CAD prior (base distance within 3 % of the JAX package's
-     figure on its own recording);
+     figure on its own recording); then the static-posture optimizer on
+     the arm with the defaults (first generation within 1e-3 of the CPU
+     in f64, the result no worse than it), the Euler-Lagrange oracle
+     against the engine's RNEA in f64 (arm fixed base, humanoid30 floating
+     base, 4 states each: 1e-8 / 1e-7), and humanoid30's structural
+     identifiability and sensor-placement study equal to the JAX
+     package's figures;
   9. the port on the card against the port on the CPU (plain versions)
      on the checked-in structural caches, so both use one projection:
      the arm at 2000 states and humanoid30 walking at 1200; the
@@ -75,8 +90,12 @@ exits non-zero, printing no result):
      torques (the same essential set from the card's f32 Grams);
  10. device times from torch.profiler of the kernel and of the library
      call (the einsum) in turns at phase 2's shapes, and the kernel's
-     share of its bound; last, so no profiler session runs before the
-     main path's walls are read.
+     share of its bound, and the kernel launches of one full-width mesh
+     verification; last, so no profiler session runs before the main
+     path's walls are read.
+After phase 3 `regressor_rows_per_sec` (bench.py:397-419) is measured:
+`regressor_batch` alone on the arm's 2000 states in f32, 20 repetitions
+between CUDA events.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -90,6 +109,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -610,12 +630,14 @@ def first_generation(spec, cfg: dict) -> np.ndarray:
 
 
 def trajectory_leg_config(seed: int = 0) -> tuple[dict, dict]:
-    """The example configuration of the arm with capsule collisions, and
-    the same with bench.py's fourth-leg budget and the optimizer's seed."""
+    """The example configuration of the arm with capsule constraints and
+    the exact convex-hull verification of the result (the mode the JAX
+    package's bench leg verifies with), and the same with bench.py's
+    fourth-leg budget and the optimizer's seed."""
     from flobaroid_tpu_torch.utils.config import load_config
 
     opt = load_config(ARM_CONFIG, overrides=dict(
-        verbose=0, trajectoryOptSeed=seed, checkCollisions=1, collisionMode="capsule"))
+        verbose=0, trajectoryOptSeed=seed, checkCollisions=1, collisionMode="convex"))
     return opt, dict(opt, **TRAJ_BUDGET)
 
 
@@ -658,6 +680,9 @@ def run_trajectory_leg(gram, tmp: str) -> dict:
             al_restarts=int(cfg["localOptRestarts"]), al_steps=al_steps,
             n_samples=obj.num_samples, n_variables=spec.dim,
             n_collision_pairs=info["n_collision_pairs"], num_base_params=model.num_base_params,
+            mesh_collision_ok=info.get("mesh_collision_ok"), t_mesh_s=info.get("t_mesh_s"),
+            backoff_ran="dopt_before_backoff" in info,
+            dopt_backoff_loss_pct=info.get("dopt_backoff_loss_pct"), card=gpu_name_power(),
             neg_logdet=f, base_cond=c, feasible=bool(info["feasible"]),
             max_violation=info["max_violation"], f=info["f"], pulse=float(x[0]),
             initial=dict(neg_logdet=f0, base_cond=c0, feasible=obj.feasible(g0),
@@ -666,8 +691,11 @@ def run_trajectory_leg(gram, tmp: str) -> dict:
             launch_shapes=sorted([*k, n] for k, n in shapes.items()),
         )
         emit("trajectory_dopt", **res)
+        check(res["mesh_collision_ok"] is not None,
+              f"trajectory, seed {seed}: the exact-mesh verification did not run")
         check(res["feasible"], f"trajectory, seed {seed}: not feasible "
-                               f"(max violation {info['max_violation']})")
+                               f"(max violation {info['max_violation']}, "
+                               f"mesh_collision_ok {res['mesh_collision_ok']})")
         # the initial candidates are infeasible (violations of 2-3), so
         # only the objective value must fall at every seed; the D-optimality
         # of the feasible result must beat the start's at seed 0
@@ -705,13 +733,14 @@ def run_trajectory_leg(gram, tmp: str) -> dict:
                g_abs_diff=float(np.abs(gd - gc).max()), cpu_f64_seconds=time.perf_counter() - t0)
     emit("trajectory_first_generation_vs_cpu_f64", **cmp)
     check(cmp["f_rel_diff"] <= 1e-3, f"trajectory: first generation differs by {cmp['f_rel_diff']}")
-    return runs[0]
+    return runs
 
 
-def run_suspended_leg(gram, tmp: str) -> dict:
+def run_suspended_leg(gram, tmp: str) -> tuple[dict, object, np.ndarray]:
     """Phase 7: the suspended humanoid30 objective (bench.py:266-273's
     options), forward on 12 candidates and one augmented-Lagrangian
-    gradient for 2 restarts, against the port on the CPU in f64."""
+    gradient for 2 restarts, against the port on the CPU in f64. Returns
+    the result, the card's objective and the candidates."""
     import torch
 
     from flobaroid_tpu_torch.excitation.objective import TrajectoryObjective
@@ -763,7 +792,7 @@ def run_suspended_leg(gram, tmp: str) -> dict:
         check(Pb is None or np.array_equal(Pb, model.Pb),
               "suspended objective: the CPU model's projection differs")
         Pb = model.Pb
-        out[dev] = dict(f=f, g=g, v=v, grad=grad, forward_s=forward_s, al_step_s=al_step_s,
+        out[dev] = dict(obj=obj, f=f, g=g, v=v, grad=grad, forward_s=forward_s, al_step_s=al_step_s,
                         build_s=build_s, n_samples=obj.num_samples, n_variables=spec.dim,
                         num_base_params=model.num_base_params)
     d, c = out["cuda"], out["cpu"]
@@ -793,7 +822,7 @@ def run_suspended_leg(gram, tmp: str) -> dict:
           f"suspended objective: card vs cpu f64 {res['f_rel_diff']}, {res['al_value_rel_diff']}")
     check(float(grad_rel.max()) <= 1e-3,
           f"suspended objective: AL gradient differs from the cpu f64 one by {grad_rel.tolist()}")
-    return res
+    return res, d["obj"], X
 
 
 def run_simulator_leg(gram, tmp: str) -> dict:
@@ -849,6 +878,508 @@ def run_simulator_leg(gram, tmp: str) -> dict:
           f"simulator: base distance {geo['base_dist']} not within 3 % of "
           f"{CAD_BASE_DIST['geometric']}")
     return diff
+
+
+# ----------------------------------------------------------------------
+# the exact-mesh tier, the posture optimizer, the Lagrangian oracle and
+# the model analyses
+# ----------------------------------------------------------------------
+# the small arm configuration of tests/test_torch_mesh_backoff.py for the
+# back-off with the stand-in geometry (minTolConstr 0: under the default
+# 1 cm tolerance the tightened constraint still counts as met at the start)
+BACKOFF_OPTIONS = dict(
+    floatingBase=0, useStructuralRegressor=1, randomSamples=2000, checkCollisions=1,
+    collisionMode="convex", minTolConstr=0.0, excitationFrequency=25.0,
+    trajectoryPulseMin=1.0, trajectoryPulseMax=1.5, trajectoryPulseInit=1.2,
+    trajectoryDefaultNf=1, globalOptSize=8, globalOptIterations=2, globalOptRestarts=1,
+    localOptIterations=1, localOptStages=2, verbose=0)
+BACKOFF_MAX_LOSS = 0.05  # tests/test_mesh_backoff.py's bound on the D-optimality loss
+# the full-width verifier's card-vs-CPU gate: a tenth of verify()'s 1e-3 m
+VERIFIER_TOL_M = 1e-4
+VERIFIER_CPU_CANDIDATES = 2  # of the suspended leg's 12, checked on the CPU too
+ARM_STRUCTURAL_SHAPE = (14000, 1, 80)  # the arm's structural Gram without friction
+# the JAX package's figures for humanoid30 with WALK_OPTIONS on the
+# checked-in cache (flobaroid_tpu.model.Model on the CPU, float32 compute:
+# structural_identifiability() and sensor_placement_study(H30_SENSOR_SETS,
+# n_samples=2000))
+H30_SENSOR_SETS = {"left_foot": ["LLeg_6"], "left_hand": ["LArm_7"]}
+H30_IDENTIFIABILITY_JAX = {
+    "individually_identifiable": 83,
+    "individually_identifiable_params": [
+        21, 25, 26, 35, 38, 45, 46, 51, 53, 55, 56, 57, 58, 72, 75, 76, 78, 81, 85, 86, 91,
+        95, 96, 98, 101, 105, 106, 115, 118, 122, 123, 124, 125, 126, 128, 142, 145, 146, 148,
+        151, 155, 156, 161, 165, 166, 168, 171, 175, 176, 185, 188, 192, 193, 194, 195, 196,
+        198, 202, 205, 208, 215, 216, 221, 225, 226, 231, 235, 236, 245, 248, 272, 275, 278,
+        285, 286, 291, 295, 296, 301, 305, 306, 315, 318],
+    "base_directions": 220, "null_directions": 120, "n_inertial_params": 340,
+}
+H30_SENSOR_PLACEMENT_JAX = {
+    "baseline_rank": 220, "n_inertial_params": 340, "null_directions": 120,
+    "sets": {"left_foot": {"links": ["LLeg_6"], "rank": 223, "gain": 3},
+             "left_hand": {"links": ["LArm_7"], "rank": 223, "gain": 3}},
+}
+# the geometries of tests/test_collision_mesh.py: two thin plates whose
+# corners overlap at q = 0; a U-channel mesh (non-convex) with a bar that
+# swings into its cavity; a world cage around both
+_INERTIAL = ('<inertial><mass value="{m}"/><inertia ixx="{i}" iyy="{i}" izz="{i}" '
+             'ixy="0" ixz="0" iyz="0"/></inertial>')
+_REVOLUTE = ('<joint name="{n}" type="revolute"><parent link="{p}"/><child link="{c}"/>'
+             '<origin xyz="{xyz}"/><axis xyz="0 0 1"/>'
+             '<limit lower="-3.14" upper="3.14" effort="10" velocity="2"/></joint>')
+PLATES_URDF = (
+    '<robot name="plates">'
+    '<link name="base_plate">' + _INERTIAL.format(m=1, i=0.1)
+    + '<visual><geometry><box size="1.0 1.0 0.02"/></geometry></visual></link>'
+    '<link name="mid">' + _INERTIAL.format(m=0.5, i=0.01) + '</link>'
+    '<link name="plate_b">' + _INERTIAL.format(m=1, i=0.1)
+    + '<visual><geometry><box size="1.0 1.0 0.02"/></geometry></visual></link>'
+    + _REVOLUTE.format(n="j1", p="base_plate", c="mid", xyz="0.95 0.95 0")
+    + _REVOLUTE.format(n="j2", p="mid", c="plate_b", xyz="0 0 0") + '</robot>')
+CHANNEL_URDF = (
+    '<robot name="channel">'
+    '<link name="channel">' + _INERTIAL.format(m=2, i=0.1)
+    + '<visual><geometry><mesh filename="uchannel.stl"/></geometry></visual></link>'
+    '<link name="mid">' + _INERTIAL.format(m=0.1, i=0.01) + '</link>'
+    '<link name="bar">' + _INERTIAL.format(m=0.5, i=0.01)
+    + '<visual><origin xyz="0.28 0 0"/><geometry><box size="0.1 0.1 0.1"/></geometry></visual>'
+    '</link>'
+    + _REVOLUTE.format(n="j1", p="channel", c="mid", xyz="0 0 0.2")
+    + _REVOLUTE.format(n="j2", p="mid", c="bar", xyz="0 0 0") + '</robot>')
+WORLD_URDF = (
+    '<robot name="room"><link name="cage">' + _INERTIAL.format(m=100, i=1)
+    + '<visual><origin xyz="0 0 0.2"/><geometry><box size="2.0 2.0 2.0"/></geometry></visual>'
+    '</link></robot>')
+
+
+def write_channel_stl(path: str) -> None:
+    """Binary STL of the U-channel: a base slab and two walls, each a
+    12-triangle box."""
+    import struct
+
+    from flobaroid_tpu_torch.collision_mesh import box_triangles
+
+    tris = []
+    for center, half in (((0, 0, -0.05), (0.5, 0.5, 0.05)), ((0.4, 0, 0.2), (0.1, 0.5, 0.2)),
+                         ((-0.4, 0, 0.2), (0.1, 0.5, 0.2))):
+        v, t = box_triangles(center, half, np.eye(3))
+        tris.append(v[t])
+    with open(path, "wb") as f:
+        f.write(b"\0" * 80)
+        tris = np.concatenate(tris)
+        f.write(struct.pack("<I", len(tris)))
+        for t in tris:
+            n = np.cross(t[1] - t[0], t[2] - t[0])
+            f.write(struct.pack("<12fH", *(n / np.linalg.norm(n)), *t[0], *t[1], *t[2], 0))
+
+
+def run_regressor_rate() -> dict:
+    """bench.py:397-419's `regressor_rows_per_sec`: `regressor_batch` alone
+    on the arm's 2000 random states in f32, 20 repetitions, each input
+    perturbed and each output reduced, timed with CUDA events."""
+    import torch
+
+    from flobaroid_tpu_torch.device import apply_precision_policy
+    from flobaroid_tpu_torch.dynamics.engine import DynamicsEngine
+    from flobaroid_tpu_torch.models.urdf import load_urdf
+
+    apply_precision_policy()
+    tree = load_urdf(ARM_URDF)
+    eng = DynamicsEngine(tree)
+    n, reps = 2000, 20
+    s = build_samples(SimpleNamespace(limits=tree.joint_limits(use_deg=False),
+                                      jointNames=list(tree.dof_names)), n)
+    Q, V, A = (torch.as_tensor(s[k], dtype=torch.float32, device="cuda")
+               for k in ("positions", "velocities", "accelerations"))
+
+    def regr_sum(i):
+        Y = eng.regressor_batch(Q + 1e-6 * i, V, A)
+        return (Y * Y).sum()
+
+    for i in range(3):
+        regr_sum(i)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(reps):
+        out = regr_sum(i)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b)
+    res = dict(n_samples=n, reps=reps, dtype="float32", rows_per_rep=n * eng.num_dofs,
+               ms_per_rep=ms / reps, regressor_rows_per_sec=reps * n * eng.num_dofs / (ms / 1e3),
+               checksum=float(out), card=gpu_name_power())
+    emit("regressor_rows_per_sec", **res)
+    check(np.isfinite(res["checksum"]), "regressor rate: non-finite regressor")
+    return res
+
+
+class StandInVerifier:
+    """The exact-geometry stand-in of tests/test_mesh_backoff.py (the
+    port's tests use this one): for the pair whose clearance varies most
+    over the first verified trajectory, the 'mesh' sits delta inside the
+    capsule surface, delta chosen so that pair violates by 2 mm; every
+    other pair is clear. Its clearances are the capsule model's on the CPU
+    in f64. Same constructor and `verify` as MeshCollisionVerifier."""
+
+    geometry = None
+
+    def __init__(self, tree, engine, config, capsule_model, world_tree=None, *, device="cuda"):
+        self.cm = capsule_model
+        self.pair_names = capsule_model.pair_names
+
+    @property
+    def num_pairs(self):
+        return len(self.pair_names)
+
+    def verify(self, Q, base_rot=None, base_pos=None, step=1, tol=1e-3):
+        import torch
+
+        cm = self.cm
+        D = cm.distances(torch.as_tensor(np.asarray(Q)[::step], dtype=torch.float64)).numpy()
+        D = D + np.asarray(cm.margins)[None, :]
+        if StandInVerifier.geometry is None:
+            spread = D.max(axis=0) - D.min(axis=0)
+            j = int(np.argmax(spread))
+            check(spread[j] > 0.01, "stand-in geometry: no configuration-dependent pair")
+            StandInVerifier.geometry = (j, float(D[:, j].min()) + 0.002)
+        j, delta = StandInVerifier.geometry
+        mesh_j = float(D[:, j].min()) - delta
+        return (False, [(self.pair_names[j], mesh_j)]) if mesh_j < tol else (True, [])
+
+
+def run_mesh_backoff_leg(gram, tmp: str) -> dict:
+    """The mesh back-off (`_mesh_backoff_refine`) on the card with the
+    stand-in geometry on the arm: it must end verified and lose at most
+    5 % of the D-optimality."""
+    from flobaroid_tpu_torch import collision_mesh
+    from flobaroid_tpu_torch.excitation.optimizer import optimize_trajectory
+    from flobaroid_tpu_torch.model import Model
+    from flobaroid_tpu_torch.utils.config import load_config
+
+    urdf = copy_urdf(ARM_URDF, os.path.join(tmp, "backoff"), with_cache=False)
+    opt = load_config(None, overrides=BACKOFF_OPTIONS)
+    start_shapes = Counter(gram.launch_shapes)
+    model = Model(dict(opt), urdf, device="cuda")
+    shapes = gram.launch_shapes - start_shapes
+    check(dict(shapes) == {ARM_STRUCTURAL_SHAPE: 1} and ARM_STRUCTURAL_SHAPE in CHECKED_SHAPES,
+          f"mesh back-off: launches {dict(shapes)} at Model init, "
+          f"not one at {ARM_STRUCTURAL_SHAPE}")
+    real = collision_mesh.MeshCollisionVerifier
+    collision_mesh.MeshCollisionVerifier = StandInVerifier
+    StandInVerifier.geometry = None
+    try:
+        t0 = time.perf_counter()
+        x, spec, obj, info = optimize_trajectory(model, dict(opt), rng=np.random.default_rng(4))
+        wall = time.perf_counter() - t0
+    finally:
+        collision_mesh.MeshCollisionVerifier = real
+    ran = "dopt_before_backoff" in info
+    loss = ((info["dopt_after_backoff"] - info["dopt_before_backoff"])
+            / abs(info["dopt_before_backoff"])) if ran else None
+    res = dict(device="cuda", wall_s=wall, t_local_s=info["t_local_s"], t_mesh_s=info["t_mesh_s"],
+               backoff_ran=ran, mesh_collision_ok=info.get("mesh_collision_ok"),
+               dopt_before_backoff=info.get("dopt_before_backoff"),
+               dopt_after_backoff=info.get("dopt_after_backoff"),
+               dopt_backoff_loss_pct=info.get("dopt_backoff_loss_pct"), feasible=info["feasible"],
+               n_samples=obj.num_samples, card=gpu_name_power())
+    emit("mesh_backoff_stand_in", **res)
+    check(ran, "mesh back-off: the stand-in geometry triggered no back-off")
+    check(bool(info.get("mesh_collision_ok")) and info["feasible"],
+          f"mesh back-off: ended with mesh_collision_ok {info.get('mesh_collision_ok')}, "
+          f"feasible {info['feasible']}")
+    check(loss < BACKOFF_MAX_LOSS, f"mesh back-off: D-optimality loss {loss} >= {BACKOFF_MAX_LOSS}")
+    return res
+
+
+def run_mesh_verifier_leg(sus_obj, X) -> dict:
+    """`MeshCollisionVerifier` at humanoid30's full width (34 links, box
+    geometry, the capsule model's pairs less those overlapping at the zero
+    pose, as optimize_trajectory builds them) over the suspended leg's 12
+    candidates at collisionCheckStep 1: one call over all samples on the
+    card; the first candidates again on the CPU (the port in f32),
+    clearances within 1e-4 m and identical verdicts."""
+    import torch
+
+    from flobaroid_tpu_torch.collision import CollisionModel
+    from flobaroid_tpu_torch.collision_mesh import MeshCollisionVerifier
+
+    model = sus_obj.model
+    cfg = dict(sus_obj.config, collisionMode="box")
+    cm = CollisionModel(model.tree, model.engine, cfg)
+    zero = [list(p) for p, _ in cm.find_colliding_at_zero()]
+    cm = CollisionModel(model.tree, model.engine, dict(cfg, ignoreLinkPairsForCollision=zero))
+    t0 = time.perf_counter()
+    Q, BR, BP = sus_obj.kinematics_batch(X)
+    kin_s = time.perf_counter() - t0
+    K, N = Q.shape[:2]
+    flat = [a.reshape(K * N, *a.shape[2:]) for a in (Q, BR, BP)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ver = MeshCollisionVerifier(model.tree, model.engine, cfg, cm, device=dev)
+        n = (K if dev == "cuda" else VERIFIER_CPU_CANDIDATES) * N
+        if dev == "cuda":  # first call: the solver libraries' start-up
+            ver.min_clearances(flat[0][:N], base_rot=flat[1][:N], base_pos=flat[2][:N])
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D = ver.min_clearances(flat[0][:n], base_rot=flat[1][:n], base_pos=flat[2][:n],
+                               per_sample=True)
+        seconds = time.perf_counter() - t0
+        # verify()'s verdict of each candidate (box geometry has no native
+        # refinement): the pairs whose clearance falls below its 1e-3 m
+        bad = [sorted(np.nonzero(D[i * N:(i + 1) * N].min(axis=0) < 1e-3)[0].tolist())
+               for i in range(n // N)]
+        out[dev] = dict(ver=ver, D=D, seconds=seconds, bad=bad, samples=n)
+    c, g = out["cpu"], out["cuda"]
+    ok0, bad0 = g["ver"].verify(Q[0], base_rot=BR[0], base_pos=BP[0])
+    n_cpu = c["samples"]
+    diff = float(np.abs(g["D"][:n_cpu] - c["D"]).max())
+    same = g["bad"][:VERIFIER_CPU_CANDIDATES] == c["bad"]
+    res = dict(pairs=g["ver"].num_pairs, self_pairs=len(g["ver"].self_pairs),
+               world_pairs=len(g["ver"].world_pairs), zero_pose_pairs_ignored=len(zero),
+               candidates=K, samples_per_candidate=N,
+               samples_cuda=g["samples"], problems_cuda=g["samples"] * g["ver"].num_pairs,
+               seconds_cuda=g["seconds"], samples_cpu_f32=n_cpu, seconds_cpu_f32=c["seconds"],
+               kinematics_s=kin_s, max_abs_clearance_diff_m=diff, identical_verdicts=same,
+               violating_pairs_by_candidate=[len(b) for b in g["bad"]],
+               min_clearance_m=float(g["D"].min()), card=gpu_name_power())
+    emit("mesh_verifier_humanoid30", **res)
+    check(np.all(np.isfinite(g["D"])), "mesh verifier: non-finite clearances on the card")
+    check(diff <= VERIFIER_TOL_M, f"mesh verifier: card vs cpu clearances differ by {diff} m")
+    check(same, "mesh verifier: the card's verdicts differ from the CPU's")
+    # verify() of one candidate against the clearances of the batched call,
+    # leaving out pairs within 1e-5 m of its threshold (rounding decides them)
+    mins0 = g["D"][:N].min(axis=0)
+    clear_cut = np.abs(mins0 - 1e-3) > 1e-5
+    flagged = np.zeros(len(mins0), dtype=bool)
+    flagged[[g["ver"].pair_names.index(p) for p, _ in bad0]] = True
+    check(np.array_equal(flagged[clear_cut], (mins0 < 1e-3)[clear_cut])
+          and ok0 == (not flagged.any()), "mesh verifier: verify() disagrees with the clearances")
+    return dict(res, ver=g["ver"], Q=flat[0], BR=flat[1], BP=flat[2])
+
+
+def run_mesh_geometry_checks(tmp: str) -> dict:
+    """The plates and the U-channel of tests/test_collision_mesh.py on the
+    card: `convex` rejects the overlapping plates and accepts the 45-degree
+    pose; `full` rejects the bar contained in the world cage and accepts
+    the bar in the channel's cavity through the native library."""
+    from flobaroid_tpu_torch import native_meshdist
+    from flobaroid_tpu_torch.collision import CollisionModel
+    from flobaroid_tpu_torch.collision_mesh import MeshCollisionVerifier
+    from flobaroid_tpu_torch.dynamics.engine import DynamicsEngine
+    from flobaroid_tpu_torch.models.urdf import load_urdf
+
+    d = os.path.join(tmp, "geometry")
+    os.makedirs(d, exist_ok=True)
+    paths = {}
+    for name, text in (("plates", PLATES_URDF), ("channel", CHANNEL_URDF), ("room", WORLD_URDF)):
+        paths[name] = os.path.join(d, f"{name}.urdf")
+        with open(paths[name], "w") as f:
+            f.write(text)
+    write_channel_stl(os.path.join(d, "uchannel.stl"))
+    t0 = time.perf_counter()
+    native = native_meshdist.available()
+    build_s = time.perf_counter() - t0
+    check(native, "the native mesh-distance library did not build (g++)")
+    base = dict(checkCollisions=1, scaleCollisionHull=1.0, meshBaseDir="meshes",
+                maxKinematicDistance=0)
+
+    def verifier(robot, mode, world=None):
+        tree = load_urdf(paths[robot])
+        eng = DynamicsEngine(tree)
+        wt = load_urdf(paths[world]) if world else None
+        cm = CollisionModel(tree, eng, dict(base, collisionMode="capsule"), world_tree=wt)
+        return MeshCollisionVerifier(tree, eng, dict(base, collisionMode=mode), cm,
+                                     world_tree=wt, device="cuda")
+
+    t0 = time.perf_counter()
+    plates = verifier("plates", "convex")
+    overlap = plates.verify(np.zeros((1, 2)))
+    turned = plates.verify(np.array([[0.0, np.pi / 4]]))
+    convex_cavity = verifier("channel", "convex").verify(np.array([[0.0, np.pi / 2]]))
+    full = verifier("channel", "full")
+    cavity = full.verify(np.array([[0.0, np.pi / 2]]))
+    wall = full.verify(np.array([[0.0, 0.0]]))
+    contained = verifier("channel", "full", world="room").verify(np.array([[0.0, np.pi / 2]]))
+    res = dict(native_available=native, native_build_s=build_s, seconds=time.perf_counter() - t0,
+               plates_overlap=overlap, plates_45deg=turned, channel_cavity_convex=convex_cavity,
+               channel_cavity_full=cavity, channel_wall_full=wall, cage_containment_full=contained,
+               native_pairs=sorted(full._native), card=gpu_name_power())
+    emit("mesh_geometry_checks", **res)
+    check(not overlap[0] and ("base_plate", "plate_b") in [p for p, _ in overlap[1]],
+          f"convex tier: the overlapping plates were accepted: {overlap}")
+    check(turned[0], f"convex tier: the 45-degree plates were rejected: {turned}")
+    check(not convex_cavity[0], "convex tier: the hull must reject the bar in the cavity")
+    check(bool(full._native) and cavity[0],
+          f"full tier: the bar in the channel's cavity was rejected: {cavity}")
+    check(not wall[0], f"full tier: the bar in the channel's wall was accepted: {wall}")
+    check(not contained[0] and ("bar", "cage") in [p for p, _ in contained[1]],
+          f"full tier: the bar contained in the world cage was accepted: {contained}")
+    return res
+
+
+def posture_first_generation(model, cfg: dict) -> np.ndarray:
+    """The posture sets `optimize_postures` evaluates first: its rng draws
+    the start mean, then the population around it."""
+    from flobaroid_tpu_torch.excitation.posture import posture_bounds
+
+    rng = np.random.default_rng(int(cfg.get("trajectoryOptSeed", 0)))
+    n_post = max(int(cfg.get("numStaticPostures", 5)), 2)
+    lo, hi = (np.tile(b, n_post) for b in posture_bounds(model))
+    mean = lo + (hi - lo) * rng.random(len(lo))
+    pop = max(int(cfg.get("globalOptSize", 12)), 8)
+    X = np.clip(mean + 0.3 * (hi - lo) * rng.standard_normal((pop, len(lo))), lo, hi)
+    X[0] = np.clip(mean, lo, hi)
+    return X
+
+
+def run_posture_leg(gram, tmp: str) -> dict:
+    """`optimize_postures` on the arm with the defaults on the card (f32);
+    its first generation against the port on the CPU in f64."""
+    import torch
+
+    from flobaroid_tpu_torch.excitation.posture import optimize_postures, posture_objective
+    from flobaroid_tpu_torch.model import Model
+    from flobaroid_tpu_torch.utils.config import load_config
+
+    urdf = copy_urdf(ARM_URDF, os.path.join(tmp, "posture"), with_cache=False)
+    opt = load_config(None, overrides=dict(floatingBase=0, verbose=0))
+    start_shapes = Counter(gram.launch_shapes)
+    model = Model(dict(opt), urdf, device="cuda")
+    shapes = gram.launch_shapes - start_shapes
+    check(dict(shapes) == {ARM_STRUCTURAL_SHAPE: 1},
+          f"posture: launches {dict(shapes)} at Model init, not one at {ARM_STRUCTURAL_SHAPE}")
+    t0 = time.perf_counter()
+    postures = optimize_postures(model, dict(opt))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    X = posture_first_generation(model, opt)
+    with torch.no_grad():
+        card = posture_objective(model, opt)(
+            torch.as_tensor(X, dtype=torch.float32, device="cuda")).double().cpu().numpy()
+        result = float(posture_objective(model, opt)(torch.as_tensor(
+            np.concatenate(postures)[None], dtype=torch.float32, device="cuda"))[0])
+        cpu_model = Model(dict(opt, computeDtype="float64"), urdf, device="cpu")
+        cpu = posture_objective(cpu_model, opt, dtype=torch.float64)(
+            torch.as_tensor(X)).numpy()
+    rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    res = dict(device="cuda", seconds=seconds, postures=len(postures),
+               first_generation=len(X), first_generation_best=float(card.min()),
+               result_objective=result, first_generation_rel_diff_vs_cpu_f64=rel,
+               card=gpu_name_power())
+    emit("posture_optimizer", **res)
+    check(len(postures) == int(opt["numStaticPostures"])
+          and all(np.all(np.isfinite(p)) for p in postures), "posture: non-finite postures")
+    check(rel <= 1e-3, f"posture: first generation differs from the cpu f64 one by {rel}")
+    check(np.isfinite(result) and result <= float(card.min()) + 1e-6 * abs(float(card.min())),
+          f"posture: result {result} worse than the first generation's best {card.min()}")
+    return res
+
+
+def run_lagrangian_oracle() -> dict:
+    """The Euler-Lagrange oracle on the card in f64 against the engine's
+    RNEA: the arm (fixed base) and humanoid30 (floating base) at 4 states
+    each, within tests/test_dynamics.py's tolerances."""
+    import torch
+
+    from flobaroid_tpu_torch.dynamics import lagrangian as lag
+    from flobaroid_tpu_torch.dynamics import spatial as sp
+    from flobaroid_tpu_torch.dynamics.engine import DynamicsEngine
+    from flobaroid_tpu_torch.models.urdf import load_urdf
+
+    res = {}
+    for label, urdf, floating, tol in (("arm_fixed", ARM_URDF, False, 1e-8),
+                                       ("humanoid30_floating", H30_URDF, True, 1e-7)):
+        tree = load_urdf(urdf)
+        eng = DynamicsEngine(tree)
+        n = eng.num_dofs
+        rng = np.random.default_rng(0)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, dtype=float), dtype=torch.float64, device="cuda")
+
+        pi = t(tree.std_params())
+        errs = []
+        t0 = time.perf_counter()
+        for _ in range(4):
+            q, dq, ddq = t(rng.uniform(-1.0, 1.0, n)), t(rng.normal(size=n)), t(rng.normal(size=n))
+            if floating:
+                rpy, drpy, ddrpy, dpb, ddpb = (t(a) for a in rng.normal(size=(5, 3)) * 0.4)
+                want = lag.inverse_dynamics_floating(eng, pi, q, dq, ddq, rpy, drpy, ddrpy,
+                                                     dpb, ddpb)
+                w, wd = torch.func.jvp(lag.omega_world, (rpy, drpy), (drpy, ddrpy))
+                base = (sp.rpy_to_rot(rpy).T[None], torch.cat([dpb, w])[None],
+                        torch.cat([ddpb, wd])[None])
+            else:
+                want = lag.inverse_dynamics_fixed(eng, pi, q, dq, ddq)
+                base = ()
+            got = eng.inverse_dynamics_batch(pi, q[None], dq[None], ddq[None], *base)[0]
+            errs.append(float((got - want).abs().max() / want.abs().max()))
+        torch.cuda.synchronize()
+        res[label] = dict(states=4, dofs=n, rows=n + (6 if floating else 0),
+                          max_rel_err=max(errs), tol=tol, seconds=time.perf_counter() - t0)
+    emit("lagrangian_oracle", device="cuda", dtype="float64", **res, card=gpu_name_power())
+    for label, r in res.items():
+        check(r["max_rel_err"] <= r["tol"],
+              f"Lagrangian oracle ({label}): RNEA differs by {r['max_rel_err']} > {r['tol']}")
+    return res
+
+
+def run_model_analyses(gram, tmp: str) -> dict:
+    """structural_identifiability and sensor_placement_study of humanoid30
+    on the card (checked-in cache, WALK_OPTIONS), equal to the JAX
+    package's figures."""
+    import torch
+
+    from flobaroid_tpu_torch.model import Model
+    from flobaroid_tpu_torch.utils.config import load_config
+
+    urdf = copy_urdf(H30_URDF, os.path.join(tmp, "analyses"), with_cache=True)
+    before = gram.launches
+    model = Model(load_config(None, overrides=WALK_OPTIONS), urdf, device="cuda")
+    check(gram.launches == before, "model analyses: the checked-in structural cache was not used")
+    t0 = time.perf_counter()
+    ident = model.structural_identifiability()
+    ident_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    study = model.sensor_placement_study(H30_SENSOR_SETS, n_samples=2000)
+    torch.cuda.synchronize()
+    study_s = time.perf_counter() - t0
+    eqs = model.base_equations_str()
+    res = dict(device="cuda", identifiability_s=ident_s, sensor_placement_s=study_s,
+               identifiability={k: v for k, v in ident.items()
+                                if k != "individually_identifiable_params"},
+               sensor_placement=study, base_equations=len(eqs),
+               description_lines=model.getDescriptionOfParameters().count("\n"),
+               card=gpu_name_power())
+    emit("model_analyses_humanoid30", **res)
+    check(ident == H30_IDENTIFIABILITY_JAX,
+          f"model analyses: structural identifiability {res['identifiability']} differs from "
+          f"the JAX package's")
+    check(study == H30_SENSOR_PLACEMENT_JAX,
+          f"model analyses: sensor placement {study} differs from the JAX package's")
+    check(len(eqs) == model.num_base_params, "model analyses: one base equation per base parameter")
+    return res
+
+
+def count_verifier_launches(verifier_leg: dict) -> int:
+    """CUDA kernels of one `min_clearances` call over all the full-width
+    leg's samples (torch.profiler; run last, after every wall is read)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ver = verifier_leg["ver"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ver.min_clearances(verifier_leg["Q"], base_rot=verifier_leg["BR"],
+                           base_pos=verifier_leg["BP"])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    emit("mesh_verifier_launches", launches_per_verify=len(kernels),
+         device_ms=device_ms, seconds=verifier_leg["seconds_cuda"],
+         device_busy_share=device_ms / 1e3 / verifier_leg["seconds_cuda"], card=gpu_name_power())
+    check(len(kernels) > 0, "mesh verifier: torch.profiler recorded no CUDA kernel")
+    return len(kernels)
 
 
 def essential_cuda_vs_cpu(gram) -> dict:
@@ -933,6 +1464,7 @@ def main() -> int:
             urdf = copy_urdf(ARM_URDF, os.path.join(tmp, label), with_cache=False)
             card_ranks[label] = run_main_path(gram, urdf, n, warm, "cuda", label)["num_base_params"]
         arm_launches = gram.launches
+        run_regressor_rate()
         # phase 4: the walking leg
         gram.launches = 0
         run_walking_leg(gram, tmp)
@@ -941,16 +1473,34 @@ def main() -> int:
         gram.launches = 0
         run_cad_leg(gram, tmp)
         cad_launches = gram.launches
-        # phases 6-8: the trajectory, suspended-objective and simulator legs
+        # phases 6-8: the trajectory (with the exact-mesh verification),
+        # suspended-objective and simulator legs
         gram.launches = 0
-        run_trajectory_leg(gram, tmp)
+        traj_runs = run_trajectory_leg(gram, tmp)
         traj_launches = gram.launches
+        extra_paths = {}
+        if not any(r["backoff_ran"] for r in traj_runs.values()):
+            # no seed needed the back-off: drive it with the stand-in geometry
+            gram.launches = 0
+            run_mesh_backoff_leg(gram, tmp)
+            extra_paths["mesh_backoff"] = gram.launches
         gram.launches = 0
-        run_suspended_leg(gram, tmp)
+        _, sus_obj, sus_X = run_suspended_leg(gram, tmp)
         suspended_launches = gram.launches
+        verifier_leg = run_mesh_verifier_leg(sus_obj, sus_X)
+        del sus_obj
+        run_mesh_geometry_checks(tmp)
         gram.launches = 0
         run_simulator_leg(gram, tmp)
         sim_launches = gram.launches
+        # the static-posture optimizer, the Lagrangian oracle, the analyses
+        gram.launches = 0
+        run_posture_leg(gram, tmp)
+        extra_paths["posture"] = gram.launches
+        run_lagrangian_oracle()
+        before = gram.launches
+        run_model_analyses(gram, tmp)
+        check(gram.launches == before, "model analyses launched the Gram kernel")
 
         # phase 9: the port on the card vs on the CPU, both on the
         # checked-in caches (the arm's randomSamples=600 hits it), so both
@@ -982,6 +1532,7 @@ def main() -> int:
           "the JAX package flobaroid_tpu was imported")
 
     phase_device_times(gram, kern)
+    count_verifier_launches(verifier_leg)
     # headline: the shape with the most kernel time per pass, the walking
     # leg's 4096-sample chunk; by_shape: every shape a path runs.
     # ms / plain_ms: CUDA-event time of one call (host included) of the
@@ -992,7 +1543,7 @@ def main() -> int:
     main_shape = kern["walking_chunk_B36_N4096_C432"]
     by_path = {"arm": arm_launches, "walking": walk_launches, "cad_study": cad_launches,
                "trajectory": traj_launches, "suspended_objective": suspended_launches,
-               "simulate_and_identify": sim_launches}
+               "simulate_and_identify": sim_launches, **extra_paths}
     for path, n in by_path.items():
         check(n > 0, f"the {path} path launched the Gram kernel no time")
     print(json.dumps({"kernels": [{

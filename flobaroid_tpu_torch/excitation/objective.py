@@ -463,17 +463,25 @@ class TrajectoryObjective:
                            self._x(X), self._t(lo), self._t(hi), lr, n_steps)
         return Xo.double().cpu().numpy()
 
-    def kinematics(self, x):
-        """Sampled (Q, base_rot, base_pos) of a candidate — the same
-        chain the objective runs, exposed for a dense collision
-        verification (reference optimizer.py:1099-1132)."""
+    def kinematics_batch(self, X):
+        """Sampled (Q (K, N, n), base_rot (K, N, 3, 3), base_pos (K, N, 3))
+        of K candidates X (K, dim) in f64 on the host — the same chain the
+        objective runs, exposed for a dense collision verification
+        (reference optimizer.py:1099-1132). The base series are None
+        without a suspended base."""
         with torch.no_grad():
-            Q, V, A = fourier_traj(self.spec, self._x(x), self._times)
+            Q, V, A = fourier_traj(self.spec, self._x(X), self._times)
+            out = (Q, None, None)
             if self.suspended is not None:
                 BR, pos_s, _, _ = self._base_motion(Q, V, A)
-                return (Q[0].double().cpu().numpy(), BR[0].double().cpu().numpy(),
-                        pos_s[0].double().cpu().numpy())
-        return Q[0].double().cpu().numpy(), None, None
+                out = (Q, BR, pos_s)
+        return tuple(None if a is None else a.double().cpu().numpy() for a in out)
+
+    def kinematics(self, x):
+        """`kinematics_batch` of one candidate: (Q (N, n), base_rot,
+        base_pos)."""
+        Q, BR, BP = self.kinematics_batch(np.asarray(x, dtype=float)[None])
+        return Q[0], None if BR is None else BR[0], None if BP is None else BP[0]
 
     def feasible(self, g, tol=None):
         """Constraint feasibility with the reference's minTolConstr

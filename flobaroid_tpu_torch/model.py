@@ -126,6 +126,16 @@ class Model:
                 self.identified_params.extend(range(i * 10 + 4, i * 10 + 10))
         self.identified_params.extend(range(self.num_model_params, self.num_all_params))
 
+        # names per parameter of the full layout (for reports)
+        self.param_names: list[str] = []
+        comp = ["m", "cx", "cy", "cz", "Ixx", "Ixy", "Ixz", "Iyy", "Iyz", "Izz"]
+        for i in range(self.num_links):
+            for c in comp:
+                self.param_names.append(f"{c}_{i}")
+        for blk, cnt in self._friction_block_names():
+            for i in range(cnt):
+                self.param_names.append(f"{blk}_{i}")
+
         # state filled by computeRegressors / projections
         self.YStd: np.ndarray | None = None
         self.YBase: np.ndarray | None = None
@@ -149,6 +159,41 @@ class Model:
 
         if regressor_init:
             self.computeRegressorLinDepsQR()
+
+    def getDescriptionOfParameters(self) -> str:
+        """Human-readable description of every standard parameter
+        (reference model.py:210-237)."""
+        names = [
+            "mass", "first moment of mass (x)", "first moment of mass (y)",
+            "first moment of mass (z)", "moment of inertia (xx)",
+            "moment of inertia (xy)", "moment of inertia (xz)",
+            "moment of inertia (yy)", "moment of inertia (yz)",
+            "moment of inertia (zz)",
+        ]
+        out = []
+        for i in range(self.num_links):
+            for j, n in enumerate(names):
+                out.append(f"Parameter {i * 10 + j}: {n} of link {self.linkNames[i]}")
+        return "\n".join(out) + "\n"
+
+    def _friction_block_names(self) -> list[tuple[str, int]]:
+        """(name, count) of the friction blocks after the inertial
+        parameters, in layout order."""
+        opt = self.opt
+        nd = self.num_dofs
+        blocks = []
+        if opt["identifyFrictionSimultaneously"]:
+            blocks.append(("Fc", nd))
+            if not opt["identifyGravityParamsOnly"]:
+                if opt["identifySymmetricVelFriction"]:
+                    blocks.append(("Fv", nd))
+                else:
+                    blocks.append(("Fv+", nd))
+                    blocks.append(("Fv-", nd))
+                blocks.append(("off", nd))
+                if opt.get("stribeckVelocity", 0) > 0:
+                    blocks.append(("Fs", nd))
+        return blocks
 
     # ------------------------------------------------------------------
     def _add_friction_from_urdf(self, params: np.ndarray, tree: RobotTree | None = None):
@@ -308,6 +353,10 @@ class Model:
         torques_stack, contactForcesSum, tauMeasured, T
         (reference model.py:333-632)."""
         opt = self.opt
+        if int(opt.get("shardSamples", 0) or 0) > 1:
+            from .identification.identifier import not_ported
+
+            raise not_ported("shardSamples > 1 (sample sharding over devices, item 9)")
         self.data = data
         self._contract_cache = {}  # contractions are per-dataset
         self._resid_cache = {}  # residual stats are per-dataset
@@ -862,6 +911,139 @@ class Model:
                 ident_mask[p] = True
         self.non_id = [p for p in range(self.num_all_params) if not ident_mask[p]]
         self.identifiable = [p for p in range(self.num_all_params) if ident_mask[p]]
+
+    # ------------------------------------------------------------------
+    # structural analyses
+    # ------------------------------------------------------------------
+    def base_equations_str(self, tol: float = 1e-6) -> list[str]:
+        """Human-readable base parameter combinations (replaces the
+        reference's sympy base_deps, model.py:1032-1052)."""
+        eqs = []
+        for i in range(self.num_base_params):
+            terms = []
+            for ci in np.nonzero(np.abs(self.K[i]) > tol)[0]:
+                coeff = self.K[i, ci]
+                # K columns are identified-space: map to the full layout
+                # (they differ in gravity-only mode)
+                name = self.param_names[self.identified_params[ci]]
+                if abs(coeff - 1.0) < 1e-9:
+                    terms.append(f"+ {name}")
+                elif abs(coeff + 1.0) < 1e-9:
+                    terms.append(f"- {name}")
+                else:
+                    terms.append(f"{coeff:+.4g}*{name}")
+            eqs.append(" ".join(terms).lstrip("+ "))
+        return eqs
+
+    def structural_identifiability(self, tol: float = 1e-6) -> dict:
+        """Structural identifiability triple over the inertial parameters
+        (reference documentation/design_notes.md:98-103):
+
+        - individually_identifiable: params that appear ALONE in a base
+          combination (their value is determined, not just a lumped sum)
+        - base_directions: rank of the structural regressor (what any
+          amount of excitation can ever determine)
+        - null_directions: identified inertial params minus the rank —
+          the recoverable-only-with-more-sensors gap
+        Friction/offset columns are excluded so the triple is comparable
+        to the reference's inertial-only analysis."""
+        if not hasattr(self, "K"):
+            raise ValueError("structural_identifiability needs "
+                             "computeRegressorLinDepsQR to have run")
+        n_inertial = self.num_model_params  # 10-per-link slots
+        inertial_cols = [ci for ci, p in enumerate(self.identified_params)
+                         if p < n_inertial]
+        inertial_set = set(inertial_cols)
+        individual = set()
+        inertial_rank = 0
+        for row in self.K:
+            nz = np.nonzero(np.abs(row) > tol)[0]
+            nz_inertial = [c for c in nz if c in inertial_set]
+            if not nz_inertial:
+                continue  # pure friction/offset direction
+            inertial_rank += 1
+            if len(nz) == 1:
+                individual.add(self.identified_params[nz[0]])
+        n_id_inertial = len(inertial_cols)
+        return {
+            "individually_identifiable": len(individual),
+            "individually_identifiable_params": sorted(individual),
+            "base_directions": inertial_rank,
+            "null_directions": n_id_inertial - inertial_rank,
+            "n_inertial_params": n_id_inertial,
+        }
+
+    def sensor_placement_study(self, sensor_sets: dict, n_samples: int = 2000) -> dict:
+        """Structural rank gain from adding 6-axis F/T sensors
+        (reference documentation/design_notes.md:104-110).
+
+        sensor_sets: {name: [link names]} candidate placements. For
+        each, the structural Gram of the row-extended regressor
+        [Y_std; Y_sensors] over random in-limit states is compared in
+        inertial rank with the sensor-less baseline. Friction columns are
+        excluded. The states are drawn from a torch.Generator seeded 7 on
+        the model's device (the JAX package draws from jax.random key 7:
+        the Grams differ in value, not in rank); each chunk's Gram is a
+        plain product in the compute dtype, summed in f64 on the host."""
+        opt = self.opt
+        eng = self.engine
+        nd = self.num_dofs
+        dt = self._compute_dtype()
+        jn = self.jointNames
+        if self.limits:
+            lo = np.array([self.limits[j]["lower"] for j in jn])
+            hi = np.array([self.limits[j]["upper"] for j in jn])
+            vl = np.array([self.limits[j]["velocity"] for j in jn])
+            lo = np.where(np.isfinite(lo), lo, -np.pi)
+            hi = np.where(np.isfinite(hi), hi, np.pi)
+            vl = np.where(np.isfinite(vl), vl, np.pi)
+        else:
+            lo, hi, vl = -np.pi * np.ones(nd), np.pi * np.ones(nd), np.pi * np.ones(nd)
+        lo, span, vl = self._to_dev(lo), self._to_dev(hi - lo), self._to_dev(vl)
+        chunk = min(int(opt.get("gramChunk", 4096)), n_samples)
+
+        def gram_for(links: tuple[int, ...]) -> np.ndarray:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(7)
+            G = np.zeros((self.num_model_params, self.num_model_params))
+            done = 0
+            while done < n_samples:
+                u = torch.rand((3, chunk, nd), generator=gen, dtype=dt, device=self.device)
+                q = lo + span * u[0]
+                dq = (u[1] - 0.5) * 2 * vl
+                ddq = (u[2] - 0.5) * 2 * np.pi
+                base = ()
+                if self.fb:
+                    b = torch.rand((chunk, 15), generator=gen, dtype=dt, device=self.device)
+                    base = (rpy_to_base_rot(0.1 * b[:, 12:]), np.pi * b[:, :6], np.pi * b[:, 6:12])
+                rows = [eng.regressor_batch(q, dq, ddq, *base)]
+                if links:
+                    rows.append(eng.sensor_wrench_regressor(links, q, dq, ddq, *base))
+                Yf = torch.cat(rows, dim=1).reshape(-1, self.num_model_params)
+                G += (Yf.T @ Yf).double().cpu().numpy()
+                done += chunk
+            return G
+
+        def rank_of(G: np.ndarray) -> int:
+            _, R, _ = sla.qr(G, pivoting=True, mode="economic")
+            diag = np.abs(np.diag(R))
+            eps = np.finfo(self._gram_dtype).eps
+            tol = max(float(opt["minTol"]), 100.0 * eps * float(diag.max(initial=0.0)))
+            return int(np.sum(diag > tol))
+
+        name_to_idx = {n: i for i, n in enumerate(self.linkNames)}
+        base_rank = rank_of(gram_for(()))
+        out = {
+            "baseline_rank": base_rank,
+            "n_inertial_params": self.num_model_params,
+            "null_directions": self.num_model_params - base_rank,
+            "sets": {},
+        }
+        for name, links in sensor_sets.items():
+            idx = tuple(sorted(name_to_idx[lk] for lk in links))
+            r = rank_of(gram_for(idx))
+            out["sets"][name] = {"links": list(links), "rank": r, "gain": r - base_rank}
+        return out
 
     def getSubregressorsConditionNumbers(self, YBase=None, G=None) -> list[float]:
         """Per-link condition number of the base columns its parameters

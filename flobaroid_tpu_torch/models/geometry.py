@@ -1,7 +1,8 @@
 """Link geometry utilities: mesh loading and bounding boxes.
 
-The port's own copy of flobaroid_tpu/models/geometry.py (numpy only),
-cut to `link_bounding_box` and the mesh readers it calls.
+The port's own copy of flobaroid_tpu/models/geometry.py (numpy only):
+the mesh readers (vertex clouds and triangle soups, STL and DAE) and
+`link_bounding_box`.
 
 Replaces the reference's trimesh dependency for the COM-hull SDP
 constraints (identification/sdp.py:222-250 via
@@ -44,6 +45,20 @@ def load_stl_vertices(path: str) -> np.ndarray:
     if not verts:
         raise ValueError(f"could not parse STL: {path}")
     return np.asarray(verts)
+
+
+def load_stl_triangles(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Read an STL file and return (vertices (V,3), triangles (T,3)).
+
+    STL is a triangle soup, so vertices arrive in facet triplets; the
+    index array is simply [[0,1,2],[3,4,5],...]. Consumers that need a
+    welded mesh can np.unique the vertices — the distance queries
+    (native_meshdist) work on the soup directly."""
+    v = load_stl_vertices(path)
+    n = (len(v) // 3) * 3
+    v = v[:n]
+    tris = np.arange(n, dtype=np.int32).reshape(-1, 3)
+    return v, tris
 
 
 def load_dae_mesh(path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -159,6 +174,13 @@ def load_mesh_vertices(path: str) -> np.ndarray:
     if path.lower().endswith(".dae"):
         return load_dae_mesh(path)[0]
     return load_stl_vertices(path)
+
+
+def load_mesh_triangles(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """(vertices, triangles) of an STL or DAE mesh file."""
+    if path.lower().endswith(".dae"):
+        return load_dae_mesh(path)
+    return load_stl_triangles(path)
 
 
 def resolve_mesh_path(filename: str, urdf_path: str | None, mesh_base_dir: str = "meshes") -> str | None:

@@ -187,8 +187,8 @@ def test_floating_structural_rank_and_column_space(tmp_path, dtype):
 def test_model_requires_a_device_and_fixed_base(arm_copy, monkeypatch):
     """The default device is the card: without one it raises, with no CPU
     fallback. A floating base and the friction refit are ported; what
-    stays unported on a model's path (the exact-mesh collision tier and
-    candidate sharding of the trajectory optimizer) raises, naming
+    stays unported on a model's path (candidate sharding of the trajectory
+    optimizer and sample sharding of the identify) raises, naming
     ROADMAP."""
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
@@ -203,9 +203,12 @@ def test_model_requires_a_device_and_fixed_base(arm_copy, monkeypatch):
     assert set(idf.postid_friction) == {"Fc", "Fv", "off"}
     from flobaroid_tpu_torch.excitation.optimizer import optimize_trajectory
 
-    for unported in (dict(collisionMode="convex"), dict(shardCandidates=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            optimize_trajectory(idf.model, {**idf.opt, **unported})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        optimize_trajectory(idf.model, {**idf.opt, "shardCandidates": 2})
+    sharded = Identification(_opt("friction", "float64", shardSamples=2), arm_copy, device="cpu")
+    sharded.data.init_from_data(_samples())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sharded.estimateParameters()
 
 
 def test_convert_carries_the_base_and_refuses_a_mismatch(arm_copy):

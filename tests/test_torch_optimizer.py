@@ -209,11 +209,12 @@ def test_interrupt_guard_keeps_to_sigint():
 
 
 def test_unported_options_raise(arm):
-    """The exact-mesh tier and candidate sharding are not ported: both
-    say so, naming ROADMAP, before any work is done."""
+    """Candidate sharding is not ported: the optimizer and the objective
+    say so, naming ROADMAP, before any work is done, whatever the
+    collision mode (the exact-mesh tier is ported)."""
     model = arm.tobj.model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.optimize_trajectory(model, dict(arm.opt, collisionMode="convex"))
+        topt.optimize_trajectory(model, dict(arm.opt, collisionMode="convex", shardCandidates=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         topt.optimize_trajectory(model, dict(arm.opt, shardCandidates=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -152,9 +152,29 @@ idf.data.init_from_data(samples)
 }
 
 
+# after the identify: the modules of the mesh tier, the posture optimizer,
+# the Lagrangian oracle and the model analyses, each called once
+_SLICE5 = """
+import torch
+from flobaroid_tpu_torch import collision_mesh, native_meshdist
+from flobaroid_tpu_torch.dynamics import lagrangian
+from flobaroid_tpu_torch.excitation import optimizer, posture
+m = idf.model
+q = torch.full((m.num_dofs,), 0.1, dtype=torch.float64)
+pi = torch.as_tensor(m.xStdModel[: m.num_model_params])
+assert torch.isfinite(lagrangian.inverse_dynamics_fixed(m.engine, pi, q, q, q)).all()
+assert m.structural_identifiability()["base_directions"] > 0 and m.base_equations_str()
+box = torch.as_tensor(collision_mesh.box_triangles((0, 0, 0), (0.5, 0.5, 0.5), np.eye(3))[0])
+assert abs(float(collision_mesh.polytope_distance(box, box + 2.0)) - 3 ** 0.5) < 1e-6
+assert torch.isfinite(posture.posture_objective(m, opt)(torch.ones((2, 5 * m.num_dofs)))).all()
+"""
+
+
 def _assert_port_loads_neither_jax_nor_yaml(tmp_path, case, **over):
-    """A CPU identify in a fresh process loads no jax, no yaml and no
-    flobaroid_tpu module."""
+    """A CPU identify in a fresh process, followed by one call into each
+    module of the mesh tier, the posture optimizer, the Lagrangian oracle
+    and the model analyses, loads no jax, no yaml and no flobaroid_tpu
+    module."""
     src, opt = (ARM_URDF, {**BENCH, **over}) if case == "arm" else (H30_URDF, WALK)
     urdf = tmp_path / os.path.basename(src)
     shutil.copy(src, urdf)
@@ -171,6 +191,7 @@ idf = Identification(opt, {str(urdf)!r}, device="cpu")
 {_LOAD_SAMPLES[case]}
 idf.estimateParameters()
 assert idf.sdp.last_status.startswith("optimal"), idf.sdp.last_status
+{_SLICE5}
 print("jax" in sys.modules, "yaml" in sys.modules,
       any(m == "flobaroid_tpu" or m.startswith("flobaroid_tpu.") for m in sys.modules))
 """
@@ -219,15 +240,19 @@ def test_unported_branches_raise(arm_copy, monkeypatch):
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Identification(jax_config.load_config(None, overrides=BENCH), arm_copy)
-    # what still raises: the exact-mesh collision tier and candidate sharding
+    # what still raises: candidate and sample sharding
     from flobaroid_tpu_torch.excitation.optimizer import optimize_trajectory
     from flobaroid_tpu_torch.model import Model
 
     opt = jax_config.load_config(None, overrides={**BENCH, "randomSamples": 600})
     model = Model(opt, arm_copy, device="cpu")
-    for unported in (dict(collisionMode="convex"), dict(shardCandidates=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            optimize_trajectory(model, {**opt, **unported})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        optimize_trajectory(model, {**opt, "shardCandidates": 2})
+    sharded = Identification(jax_config.load_config(None, overrides={**BENCH, "shardSamples": 2}),
+                             arm_copy, device="cpu")
+    sharded.data.init_from_data(build_samples(arm_copy, n=400))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sharded.estimateParameters()
     # essential parameters no longer do (value parity: the tests below)
     idf = Identification(jax_config.load_config(None, overrides={**BENCH, "useEssentialParams": 1}),
                          arm_copy, device="cpu")

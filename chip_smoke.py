@@ -88,8 +88,23 @@ exits non-zero, printing no result):
      structural rank found on the card (phases 3-4, cache misses) must
      equal the CPU run's; the arm's essential parameters from noisy
      torques (the same essential set from the card's f32 Grams);
+ 8b. the README's quick start through the port's commands
+     (flobaroid_tpu_torch.cli, each through its main(argv) in this process,
+     on the card by default): cli.trajectory -> cli.simulator ->
+     cli.identifier with examples/configs/sevenlink_arm.yaml unchanged in
+     a temporary directory (feasible; torque error, consistency and
+     validation reported; the URDF written with every link mass within
+     50 %; SDP optimal; the structural cache miss one kernel launch), the
+     unobservable params again on the CPU in f64 (reported), the streamed
+     identify (materializeRegressor 0) on the card against the CPU (xBase
+     1e-4, residual 1e-3 points, one launch a chunk), the streamed
+     identify of a numpy-made trajectory against the JAX package's root
+     commands (CLI_JAX: residual 0.005 points, xBase 1e-3), and the WebGL
+     viewer in a fresh process that loads no JAX; the kernel is then held
+     against its plain version at every shape these runs sent it that
+     phase 2 did not check (the lengths follow the optimized trajectory);
  10. device times from torch.profiler of the kernel and of the library
-     call (the einsum) in turns at phase 2's shapes, and the kernel's
+     call (the einsum) in turns at every checked shape, and the kernel's
      share of its bound, and the kernel launches of one full-width mesh
      verification; last, so no profiler session runs before the main
      path's walls are read.
@@ -97,6 +112,9 @@ After phase 3 `regressor_rows_per_sec` (bench.py:397-419) is measured:
 `regressor_batch` alone on the arm's 2000 states in f32, 20 repetitions
 between CUDA events.
 The last line is {"ok": true, "device": {...}}.
+
+CLI_JAX_N and CLI_JAX come from the JAX package's root simulator.py and
+identifier.py on the CPU: `python tools/jax_cli_record.py` prints them.
 """
 
 from __future__ import annotations
@@ -298,7 +316,12 @@ def physically_consistent(idf) -> bool:
 # Gram is one B=1 launch of 2000 random states x rows: 14 000 x 80 (arm),
 # 14 000 x 101 (the arm with friction columns, the trajectory leg),
 # 72 000 x 430 (humanoid30), 72 000 x 340 (humanoid30 without friction
-# columns, the suspended leg). The extra shapes are run by no path here.
+# columns, the suspended leg). The quick start's streamed identify against
+# the JAX package sends one chunk of CLI_JAX_N x 7 x 82; its other shapes
+# follow the optimized trajectory's length and are checked after the run.
+# The extra shapes are run by no path here.
+# `write_cli_trajectory`'s length: one period at the drawn pulsation, 100 Hz
+CLI_JAX_N = 519
 KERNEL_SHAPES = [
     ("structural_B1_M14000_C80", 14000, 1, 80, True),
     ("per_channel_B7_N2000_C82", 2000, 7, 82, True),
@@ -311,6 +334,7 @@ KERNEL_SHAPES = [
     ("cad_study_B36_N1000_C432", *CAD_STUDY_SHAPE, True),
     ("trajectory_structural_B1_M14000_C101", *TRAJ_STRUCTURAL_SHAPE, True),
     ("suspended_structural_B1_M72000_C340", *SUSPENDED_STRUCTURAL_SHAPE, True),
+    (f"cli_vs_jax_B7_N{CLI_JAX_N}_C82", CLI_JAX_N, 7, 82, True),
     ("extra_one_call_B7_N60000_C82", 60000, 7, 82, False),
     ("extra_ragged_M1037_C37", 1037, 1, 37, False),
 ]
@@ -327,32 +351,57 @@ def kernel_input(gen, name: str, N: int, B: int, C: int):
     return torch.randn((N, B, width), generator=gen, device="cuda", dtype=torch.float32)[..., :C]
 
 
+def check_kernel_shape(gram, gen, name: str, N: int, B: int, C: int, on_path: bool) -> dict:
+    """The Gram kernel at one shape against the plain version computed in
+    f64 on the same inputs: one launch a call, within GRAM_TOL, bitwise
+    reproducible; CUDA-event times of one call of the kernel and of the
+    plain f32 version, and the bound."""
+    import torch
+
+    Y = kernel_input(gen, name, N, B, C)
+    before = gram.launches
+    Gk = gram.gram_batched(Y)
+    check(gram.launches == before + 1, f"Gram kernel {name}: {gram.launches - before} launches")
+    G64 = gram.gram_plain(Y.double())
+    torch.cuda.synchronize()
+    rel = float((Gk.double() - G64).abs().max() / G64.abs().max())
+    abs_err = float((Gk.double() - G64).abs().max())
+    check(np.isfinite(rel) and rel <= GRAM_TOL,
+          f"Gram kernel {name}: rel err {rel:.3g} > {GRAM_TOL}")
+    check(torch.equal(Gk, gram.gram_batched(Y)), f"Gram kernel {name}: not reproducible")
+    ms = event_times_ms(lambda: gram.gram_batched(Y))
+    plain_ms = event_times_ms(lambda: gram.gram_plain(Y))
+    bound, bound_by = gram_bound_ms(N, B, C)
+    res = dict(N=N, B=B, C=C, on_main_path=on_path, row_stride=Y.stride(0),
+               rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_us=bound * 1e3, bound_by=bound_by)
+    emit("kernel_vs_plain", shape=name, **res)
+    return res
+
+
 def phase_kernels(gram) -> dict:
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    out = {}
-    for name, N, B, C, on_path in KERNEL_SHAPES:
-        Y = kernel_input(gen, name, N, B, C)
-        before = gram.launches
-        Gk = gram.gram_batched(Y)
-        check(gram.launches == before + 1, f"Gram kernel {name}: {gram.launches - before} launches")
-        G64 = gram.gram_plain(Y.double())
-        torch.cuda.synchronize()
-        rel = float((Gk.double() - G64).abs().max() / G64.abs().max())
-        abs_err = float((Gk.double() - G64).abs().max())
-        check(np.isfinite(rel) and rel <= GRAM_TOL,
-              f"Gram kernel {name}: rel err {rel:.3g} > {GRAM_TOL}")
-        check(torch.equal(Gk, gram.gram_batched(Y)), f"Gram kernel {name}: not reproducible")
-        ms = event_times_ms(lambda: gram.gram_batched(Y))
-        plain_ms = event_times_ms(lambda: gram.gram_plain(Y))
-        bound, bound_by = gram_bound_ms(N, B, C)
-        out[name] = dict(N=N, B=B, C=C, on_main_path=on_path, row_stride=Y.stride(0),
-                         rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_us=bound * 1e3, bound_by=bound_by)
-        emit("kernel_vs_plain", shape=name, **out[name])
-    return out
+    return {name: check_kernel_shape(gram, gen, name, N, B, C, on_path)
+            for name, N, B, C, on_path in KERNEL_SHAPES}
+
+
+def check_path_shapes(gram, kern: dict, shapes, label: str) -> None:
+    """Hold the kernel against its plain version at every shape a path
+    sent it that phase 2 did not check (shapes that follow a run's data,
+    such as an optimized trajectory's length), and add them to the
+    checked shapes. Called after the path's launches were counted: these
+    comparison launches count for no path."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    for N, B, C in sorted(set(shapes) - CHECKED_SHAPES):
+        name = f"{label}_B{B}_N{N}_C{C}"
+        kern[name] = check_kernel_shape(gram, gen, name, N, B, C, True)
+        CHECKED_SHAPES.add((N, B, C))
 
 
 def phase_device_times(gram, kern: dict) -> None:
@@ -364,7 +413,8 @@ def phase_device_times(gram, kern: dict) -> None:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    for name, N, B, C, _ in KERNEL_SHAPES:
+    for name, r in kern.items():
+        N, B, C = r["N"], r["B"], r["C"]
         Y = kernel_input(gen, name, N, B, C)
         k1, k_names = device_ms(lambda: gram.gram_batched(Y))
         l1, l_names = device_ms(lambda: gram.gram_plain(Y))
@@ -1382,6 +1432,363 @@ def count_verifier_launches(verifier_leg: dict) -> int:
     return len(kernels)
 
 
+# ----------------------------------------------------------------------
+# the README's quick start through the port's commands
+# ----------------------------------------------------------------------
+# the example configuration on the arm's checked-in structural cache
+# (n = 600, no friction columns), with friction not simulated and the
+# streamed identify: the run held against the JAX package's commands
+CLI_JAX_OPTIONS = dict(randomSamples=600, identifyFrictionSimultaneously=0, simulateFriction=0,
+                       materializeRegressor=0)
+# the JAX package's root simulator.py then identifier.py on that trajectory
+# with that configuration and cache, on the CPU in f32 (`python
+# tools/jax_cli_record.py`)
+CLI_JAX = dict(
+    res_error_pct=3.344419323483069,
+    physically_consistent=True, sdp_status='optimal', num_base_params=43,
+    xBase=[
+        -0.0004524558634488215, -0.0003284410188910316, -0.00030421785303416096,
+        0.09916630187928413, -0.00016886352359766338, 0.001030406621611161,
+        -0.0007401256881449015, 0.00019008208119959569, -0.0016470338967976706,
+        3.875819100414457e-05, -0.0061335325377609735, 0.0007874890475065487,
+        0.010365932180911478, 0.9084318088614762, -0.006629091100642009, 0.00038080450933869063,
+        0.0008985249572646838, 0.0021509109975805154, -0.002096221001858795,
+        0.0008474644694297557, 0.0027499255769886976, 2.6038555821589595, -0.026243537159538064,
+        -0.0009326644221164489, 0.014000007980695634, 0.0069345098774326935, 0.005203452437611746,
+        -0.005633918221442999, -0.0012916587086956957, -0.07078758676852877, -0.07602665002662483,
+        0.00015870870736251115, -0.08959686022675088, -0.0003765137132758049,
+        0.001845339377994608, -0.0926993310253208, 0.0017439291049814308, 0.10119451927238246,
+        -0.004522256886106127, -0.005387865447021376, -0.09399327129908369, 0.00582372116451952,
+        0.016183555690197166,
+    ],
+)
+CLI_JAX_RES_TOL_PCT_POINTS = 0.005
+CLI_JAX_XBASE_TOL = 1e-3
+CLI_CPU_XBASE_TOL = 1e-4  # the arm's card-vs-CPU tolerance (phase 9)
+CLI_CPU_RES_TOL_PCT_POINTS = 1e-3
+
+
+def write_cli_trajectory(urdf: str, cfg: dict, path: str) -> int:
+    """Write, in trajectory.py's saved format, one period of a
+    tanh-bounded Fourier trajectory (the optimizer's family) whose
+    pulsation, centre offsets and coefficients are drawn from
+    np.random.default_rng(0) within the configuration's bounds, sampled
+    in f64 at `excitationFrequency`: within the joint limits by
+    construction. Returns the number of samples."""
+    from flobaroid_tpu_torch.models.urdf import load_urdf
+
+    tree = load_urdf(urdf)
+    lims = tree.joint_limits()
+    lo = np.array([lims[j]["lower"] for j in tree.dof_names])
+    hi = np.array([lims[j]["upper"] for j in tree.dof_names])
+    n, nf = tree.num_dofs, int(cfg["trajectoryDefaultNf"])
+    rng = np.random.default_rng(0)
+    wf = rng.uniform(float(cfg["trajectoryPulseMin"]), float(cfg["trajectoryPulseMax"]))
+    q0 = rng.uniform(-0.2, 0.2, n)
+    cmin, cmax = float(cfg["trajectoryCoeffMin"]), float(cfg["trajectoryCoeffMax"])
+    a, b = rng.uniform(cmin, cmax, (n, nf)), rng.uniform(cmin, cmax, (n, nf))
+    freq = float(cfg["excitationFrequency"])
+    t = np.arange(int(2 * np.pi / wf * freq)) / freq
+    wl = wf * np.arange(1, nf + 1)
+    sn, cs = np.sin(t[:, None] * wl), np.cos(t[:, None] * wl)
+    raw = sn @ a.T + cs @ b.T
+    raw_d = (cs * wl) @ a.T - (sn * wl) @ b.T
+    raw_dd = -(sn * wl**2) @ a.T - (cs * wl**2) @ b.T
+    center = np.clip((lo + hi) / 2 + q0, lo, hi)
+    span = 0.95 * np.minimum(center - lo, hi - center)
+    th = np.tanh(raw)
+    sech2 = 1.0 - th**2
+    Q = center + span * th
+    check(np.all((Q >= lo) & (Q <= hi)), "cli trajectory: outside the joint limits")
+    np.savez(path, use_deg=False, static=False, a=np.array(list(a), dtype=object),
+             b=np.array(list(b), dtype=object), q=q0, nf=np.full(n, nf), wf=wf, positions=Q,
+             velocities=span * sech2 * raw_d,
+             accelerations=span * (sech2 * raw_dd - 2.0 * th * sech2 * raw_d**2),
+             times=t, frequency=np.float64(freq), joint_limits=np.stack([lo, hi], axis=1))
+    return len(t)
+
+
+def cli_jax_workdir(tmp: str) -> tuple[str, str, str]:
+    """The against-JAX run's directory: the arm with its checked-in cache,
+    the configuration (CLI_JAX_OPTIONS over the example), the trajectory.
+    Returns (urdf, config file, trajectory file)."""
+    import yaml
+
+    d = os.path.join(tmp, "cli_vs_jax")
+    urdf = copy_urdf(ARM_URDF, d, with_cache=True)
+    with open(ARM_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(CLI_JAX_OPTIONS)
+    cfg_file = os.path.join(d, "cfg.yaml")
+    with open(cfg_file, "w") as f:
+        yaml.safe_dump(cfg, f)
+    traj = os.path.join(d, "trajectory.npz")
+    write_cli_trajectory(urdf, cfg, traj)
+    return urdf, cfg_file, traj
+
+
+def run_cli(main, argv: list[str]) -> tuple[object, str, float]:
+    """One of the port's commands through its main(argv), in this process
+    (so the kernel's launch counter sees its launches); returns its result,
+    its standard output and its seconds."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv)
+    torch.cuda.synchronize()
+    return res, buf.getvalue(), time.perf_counter() - t0
+
+
+def streamed_identify(gram, common: list[str], extra: list[str], label: str,
+                      device: str | None) -> dict:
+    """cli.identifier on the card (device None: the default) or the CPU:
+    its xBase, residual, consistency verdict and SDP status, and the
+    kernel's launches and shapes in this run."""
+    from flobaroid_tpu_torch.cli import identifier
+
+    before, before_shapes = gram.launches, Counter(gram.launch_shapes)
+    argv = [*common, *extra] + ([] if device is None else ["--device", device])
+    idf, text, seconds = run_cli(identifier.main, argv)
+    m = idf.model
+    return dict(label=label, device=str(m.device), seconds=seconds,
+                res_error_pct=float(idf.res_error), xBase=np.asarray(m.xBase, dtype=float),
+                physically_consistent=physically_consistent(idf),
+                sdp_status=idf.sdp.last_status if idf.sdp else None,
+                num_base_params=m.num_base_params, n_samples=idf.data.num_used_samples,
+                chunk=int(idf.opt["gramChunk"]), launches=gram.launches - before,
+                shapes=gram.launch_shapes - before_shapes, text=text)
+
+
+def run_cli_quick_start(gram, kern: dict, tmp: str) -> dict:
+    """The README's quick start through the port's commands, on the card
+    by default: cli.trajectory -> cli.simulator -> cli.identifier with the
+    example configuration unchanged, then the streamed identify card
+    against CPU, the run held against the JAX package's commands, and the
+    WebGL viewer in a fresh process. Returns the launches by path (read
+    before the run-time shapes are checked against the plain version)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import yaml
+
+    from flobaroid_tpu_torch.cli import identifier, simulator, trajectory
+    from flobaroid_tpu_torch.excitation import optimizer
+    from flobaroid_tpu_torch.model import Model
+    from flobaroid_tpu_torch.models.urdf import load_urdf
+    from flobaroid_tpu_torch.output import OutputConsole
+    from flobaroid_tpu_torch.utils.config import load_config
+
+    d = os.path.join(tmp, "quick_start")
+    urdf = copy_urdf(ARM_URDF, d, with_cache=False)
+    traj, meas, out_urdf = (os.path.join(d, f) for f in
+                            ("trajectory.npz", "measurements.npz", "identified.urdf"))
+    common = ["--config", ARM_CONFIG, "--model", urdf]
+    plot = importlib.util.find_spec("matplotlib") is not None
+    cwd = os.getcwd()
+    os.chdir(d)  # the configuration's outputFilename is relative
+    infos, seconds, by_path = [], {}, {}
+    try:
+        # 1. trajectory: the structural cache misses (one launch), the
+        # optimizer's result is read through a wrapper
+        run_opt = optimizer.optimize_trajectory
+
+        def recording(*a, **k):
+            r = run_opt(*a, **k)
+            infos.append(r[3])
+            return r
+
+        optimizer.optimize_trajectory = recording
+        gram.launches, start_shapes = 0, Counter(gram.launch_shapes)
+        try:
+            _, text, seconds["trajectory"] = run_cli(trajectory.main, [*common, "--filename", traj])
+        finally:
+            optimizer.optimize_trajectory = run_opt
+        by_path["cli_trajectory"] = gram.launches
+        traj_shapes = gram.launch_shapes - start_shapes
+        info = infos[0]
+        with np.load(traj, allow_pickle=True) as f:
+            saved = {k: f[k] for k in f.files}
+        emit("cli_trajectory", seconds=seconds["trajectory"], t_global_s=info["t_global_s"],
+             t_local_s=info["t_local_s"], t_mesh_s=info.get("t_mesh_s"), feasible=info["feasible"],
+             mesh_collision_ok=info.get("mesh_collision_ok"), f=info["f"],
+             max_violation=info["max_violation"], n_samples=len(saved["times"]),
+             wf=float(saved["wf"]), unobservable_params=saved["unobservable_params"].tolist(),
+             n_observable_base_params=int(saved["n_observable_base_params"]),
+             launches=by_path["cli_trajectory"],
+             launch_shapes=sorted([*k, c] for k, c in traj_shapes.items()), card=gpu_name_power())
+        check(bool(info["feasible"]) and "feasible=True" in text, "cli trajectory: not feasible")
+        check(by_path["cli_trajectory"] >= 1 and TRAJ_STRUCTURAL_SHAPE in traj_shapes,
+              f"cli trajectory: no structural launch at {TRAJ_STRUCTURAL_SHAPE} ({dict(traj_shapes)})")
+
+        # the unobservable params again on the CPU in f64 (the card's f32
+        # base regressor can move the count at the 1e-6 relative threshold)
+        cfg = load_config(ARM_CONFIG, overrides=dict(urdf=urdf, computeDtype="float64"))
+        cpu_model = Model(dict(cfg), urdf, device="cpu")
+        unobs, _, n_obs = trajectory.observability(
+            cpu_model, saved["positions"], saved["velocities"], saved["accelerations"],
+            saved["times"], cfg)
+        emit("cli_observability_card_vs_cpu_f64", card=saved["unobservable_params"].tolist(),
+             cpu_f64=unobs, card_n_observable=int(saved["n_observable_base_params"]),
+             cpu_f64_n_observable=n_obs,
+             differ=unobs != saved["unobservable_params"].tolist())
+
+        # 2. simulator, 3. identifier (the example's materialized
+        # identify reads the cache the trajectory stage wrote)
+        _, _, seconds["simulate"] = run_cli(simulator.main, [
+            *common, "--trajectory", traj, "--filename", meas])
+        gram.launches = 0
+        argv = [*common, "--measurements", meas, "--validation", meas, "--model_real", ARM_URDF,
+                "--model_output", out_urdf, "--trajectory", traj] + (["--plot"] if plot else [])
+        idf, text, seconds["identify_cold"] = run_cli(identifier.main, argv)
+        quick_identify_launches = gram.launches
+        m = idf.model
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            OutputConsole(idf).render()
+        seconds["report"] = time.perf_counter() - t0
+        written = os.path.exists(out_urdf)
+        masses = load_urdf(out_urdf).std_params()[0::10] if written else None
+        true_m = load_urdf(ARM_URDF).std_params()[0::10]
+        nz = true_m > 0
+        mass_err = (float(np.max(np.abs(masses[nz] - true_m[nz]) / true_m[nz]))
+                    if written else None)
+        emit("cli_identify", seconds=seconds["identify_cold"], report_s=seconds["report"],
+             plot=plot, report_html=os.path.exists(os.path.join(d, "sevenlink_report.html")),
+             device=str(m.device), n_samples=idf.data.num_used_samples,
+             res_error_pct=float(idf.res_error), val_error_pct=float(idf.val_error),
+             sdp_status=idf.sdp.last_status, urdf_written=written, max_mass_rel_err=mass_err,
+             launches=quick_identify_launches, summary=text.strip().splitlines()[-8:],
+             card=gpu_name_power())
+        for phrase in ("torque estimation error", "physically consistent", "validation:"):
+            check(phrase in text, f"cli identify: '{phrase}' not in its output")
+        check(written, "cli identify: the identified URDF was not written")
+        check(mass_err < 0.5, f"cli identify: a link mass {mass_err:.3g} from the true one")
+        check(str(idf.sdp.last_status).startswith("optimal"),
+              f"cli identify: sdp status {idf.sdp.last_status}")
+        check(m.device.type == "cuda" and any(dev.startswith("cuda") for _, dev in m.engine._consts),
+              f"cli identify: the model ran on {m.device}")
+        check(not plot or os.path.exists(os.path.join(d, "sevenlink_report.html")),
+              "cli identify: --plot wrote no report")
+
+        # 4. the streamed identify (materializeRegressor 0), card and CPU,
+        # both on the structural cache the card's trajectory stage wrote
+        with open(ARM_CONFIG) as f:
+            streamed = dict(yaml.safe_load(f), materializeRegressor=0)
+        streamed_cfg = os.path.join(d, "streamed.yaml")
+        with open(streamed_cfg, "w") as f:
+            yaml.safe_dump(streamed, f)
+        s_common = ["--config", streamed_cfg, "--model", urdf]
+        extra = ["--measurements", meas, "--trajectory", traj]
+        gram.launches = 0
+        card = streamed_identify(gram, s_common, extra, "card", None)
+        by_path["cli_identify"] = gram.launches
+        seconds["identify_streamed"] = card["seconds"]
+        cpu = streamed_identify(gram, s_common, extra, "cpu", "cpu")
+        check(cpu["launches"] == 0, "cli identify on the CPU launched the kernel")
+        cmp = dict(xBase_rel_diff=float(np.linalg.norm(card["xBase"] - cpu["xBase"])
+                                        / np.linalg.norm(cpu["xBase"])),
+                   res_error_diff_pct_points=abs(card["res_error_pct"] - cpu["res_error_pct"]),
+                   physically_consistent=[card["physically_consistent"], cpu["physically_consistent"]],
+                   sdp_status=[card["sdp_status"], cpu["sdp_status"]],
+                   card_s=card["seconds"], cpu_s=cpu["seconds"], n_samples=card["n_samples"],
+                   launches=card["launches"],
+                   launch_shapes=sorted([*k, c] for k, c in card["shapes"].items()))
+        emit("cli_streamed_cuda_vs_cpu", **cmp, card=gpu_name_power())
+        check(card["device"].startswith("cuda") and cpu["device"] == "cpu",
+              f"cli streamed identify: devices {card['device']}, {cpu['device']}")
+        check(cmp["xBase_rel_diff"] <= CLI_CPU_XBASE_TOL,
+              f"cli streamed identify: xBase card vs CPU {cmp['xBase_rel_diff']}")
+        check(cmp["res_error_diff_pct_points"] <= CLI_CPU_RES_TOL_PCT_POINTS,
+              f"cli streamed identify: residual card vs CPU {cmp['res_error_diff_pct_points']}")
+        check(card["physically_consistent"] == cpu["physically_consistent"],
+              "cli streamed identify: the consistency verdicts differ")
+        check(card["launches"] == -(-card["n_samples"] // card["chunk"]),
+              f"cli streamed identify: {card['launches']} launches for {card['n_samples']} samples")
+
+        # 5. held against the JAX package's commands (CLI_JAX)
+        j_urdf, j_cfg, j_traj = cli_jax_workdir(tmp)
+        j_meas = os.path.join(os.path.dirname(j_urdf), "measurements.npz")
+        j_common = ["--config", j_cfg, "--model", j_urdf]
+        with np.load(j_traj) as f:
+            check(len(f["times"]) == CLI_JAX_N, f"cli vs jax: {len(f['times'])} samples")
+        gram.launches = 0
+        run_cli(simulator.main, [*j_common, "--trajectory", j_traj, "--filename", j_meas])
+        check(gram.launches == 0, "cli vs jax: the simulator launched the kernel")
+        port = streamed_identify(gram, j_common, ["--measurements", j_meas, "--validation", j_meas],
+                                 "card", None)
+        by_path["cli_identify"] += gram.launches
+        xj = np.asarray(CLI_JAX["xBase"])
+        vs = dict(res_error_pct=port["res_error_pct"], jax_res_error_pct=CLI_JAX["res_error_pct"],
+                  res_error_diff_pct_points=abs(port["res_error_pct"] - CLI_JAX["res_error_pct"]),
+                  xBase_rel_diff=float(np.linalg.norm(port["xBase"] - xj) / np.linalg.norm(xj)),
+                  physically_consistent=[port["physically_consistent"],
+                                         CLI_JAX["physically_consistent"]],
+                  sdp_status=[port["sdp_status"], CLI_JAX["sdp_status"]],
+                  n_samples=port["n_samples"], launches=port["launches"],
+                  launch_shapes=sorted([*k, c] for k, c in port["shapes"].items()))
+        emit("cli_vs_jax_package", **vs, card=gpu_name_power())
+        check(port["num_base_params"] == CLI_JAX["num_base_params"], "cli vs jax: base params")
+        check(vs["res_error_diff_pct_points"] <= CLI_JAX_RES_TOL_PCT_POINTS,
+              f"cli vs jax: residual differs by {vs['res_error_diff_pct_points']} points")
+        check(vs["xBase_rel_diff"] <= CLI_JAX_XBASE_TOL, f"cli vs jax: xBase {vs['xBase_rel_diff']}")
+        check(port["physically_consistent"] == CLI_JAX["physically_consistent"],
+              "cli vs jax: the consistency verdicts differ")
+        check(port["sdp_status"] == CLI_JAX["sdp_status"], f"cli vs jax: sdp {vs['sdp_status']}")
+        check(port["launches"] == -(-port["n_samples"] // port["chunk"]),
+              f"cli vs jax: {port['launches']} launches for {port['n_samples']} samples")
+
+        # 6. the WebGL viewer in a fresh process, default device
+        html = os.path.join(d, "viewer.html")
+        # the devices of every FK and clearance result the viewer computed
+        code = (f"import json, sys\nsys.path.insert(0, {REPO!r})\n"
+                "from flobaroid_tpu_torch.cli import visualizer\n"
+                "from flobaroid_tpu_torch.collision import CollisionModel\n"
+                "from flobaroid_tpu_torch.dynamics.engine import DynamicsEngine\n"
+                "seen = dict(fk=set(), clearances=set())\n"
+                "def spy(cls, name, key):\n"
+                "    f = getattr(cls, name)\n"
+                "    def g(*a, **k):\n"
+                "        out = f(*a, **k)\n"
+                "        seen[key].add(str((out[0] if isinstance(out, tuple) else out).device))\n"
+                "        return out\n"
+                "    setattr(cls, name, g)\n"
+                "spy(DynamicsEngine, 'fk', 'fk')\n"
+                "spy(CollisionModel, 'distances', 'clearances')\n"
+                f"visualizer.main({[*common, '--trajectory', meas, '--webgl', '--out', html]!r})\n"
+                "print(json.dumps(dict(jax='jax' in sys.modules, jax_package=any("
+                "m == 'flobaroid_tpu' or m.startswith('flobaroid_tpu.') for m in sys.modules), "
+                "devices={k: sorted(v) for k, v in seen.items()})))\n")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             timeout=300, cwd=d)
+        seconds["viewer"] = time.perf_counter() - t0
+        check(out.returncode == 0, f"cli visualizer failed: {out.stderr[-2000:]}")
+        loaded = json.loads(out.stdout.strip().splitlines()[-1])
+        emit("cli_visualizer", seconds=seconds["viewer"], html_bytes=os.path.getsize(html),
+             **loaded, card=gpu_name_power())
+        check(os.path.getsize(html) > 1000, "cli visualizer: no HTML written")
+        check(not loaded["jax"] and not loaded["jax_package"],
+              f"cli visualizer loaded {loaded}")
+        for key, devs in loaded["devices"].items():
+            check(devs and all(dv.startswith("cuda") for dv in devs),
+                  f"cli visualizer: {key} ran on {devs}, not on the card")
+    finally:
+        os.chdir(cwd)
+    emit("cli_quick_start", seconds=seconds, t_global_s=info["t_global_s"],
+         t_local_s=info["t_local_s"], launches_by_path=by_path, card=gpu_name_power())
+    for label, shapes in (("cli_trajectory", traj_shapes), ("cli_identify", card["shapes"]),
+                          ("cli_vs_jax", port["shapes"])):
+        check_path_shapes(gram, kern, shapes, label)
+        check(set(shapes) <= CHECKED_SHAPES, f"{label}: launches at unchecked shapes")
+    return by_path
+
+
 def essential_cuda_vs_cpu(gram) -> dict:
     """The arm's essential parameters (the deletion order decides the set)
     from 2000 states with noisy torques: the card's f32 Grams must give
@@ -1501,6 +1908,8 @@ def main() -> int:
         before = gram.launches
         run_model_analyses(gram, tmp)
         check(gram.launches == before, "model analyses launched the Gram kernel")
+        # the README's quick start through the port's commands
+        cli_paths = run_cli_quick_start(gram, kern, tmp)
 
         # phase 9: the port on the card vs on the CPU, both on the
         # checked-in caches (the arm's randomSamples=600 hits it), so both
@@ -1543,7 +1952,7 @@ def main() -> int:
     main_shape = kern["walking_chunk_B36_N4096_C432"]
     by_path = {"arm": arm_launches, "walking": walk_launches, "cad_study": cad_launches,
                "trajectory": traj_launches, "suspended_objective": suspended_launches,
-               "simulate_and_identify": sim_launches, **extra_paths}
+               "simulate_and_identify": sim_launches, **extra_paths, **cli_paths}
     for path, n in by_path.items():
         check(n > 0, f"the {path} path launched the Gram kernel no time")
     print(json.dumps({"kernels": [{

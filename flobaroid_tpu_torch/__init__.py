@@ -19,7 +19,9 @@ find. Conventions of the port:
 The port imports neither JAX nor anything of `flobaroid_tpu`: it keeps
 its own copies of the numpy/scipy/xml-only code it needs
 (`models/urdf.py`, `models/geometry.py`, `utils/helpers.py`,
-`identification/least_squares.py`). Only its tests import both packages.
+`identification/least_squares.py`, `output.py`, `robot_io/`). Only its
+tests import both packages. The command line is `cli/`, one module per
+root script of the JAX package (`python -m flobaroid_tpu_torch.cli.<name>`).
 """
 
 __version__ = "0.1.0"

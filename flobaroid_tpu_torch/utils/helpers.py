@@ -1,5 +1,6 @@
-"""Host-side helpers: friction sign series, physical-consistency checks
-and the torque error metrics.
+"""Host-side helpers: friction sign series, physical-consistency checks,
+the link-frame / barycentric parameter conversions and the torque error
+metrics.
 
 The port's own copy of the functions of flobaroid_tpu/utils/helpers.py
 (numpy and scipy only) that the port calls.
@@ -119,3 +120,51 @@ def nrms_error_pct(measured: np.ndarray, estimated: np.ndarray, limits: np.ndarr
     rng = 2.0 * np.asarray(limits)
     rng = np.where(np.isfinite(rng) & (rng > 0), rng, np.max(np.abs(measured), axis=0) + 1e-12)
     return float(100.0 * np.mean(rms / rng))
+
+
+def consistency_per_link(
+    params: np.ndarray, num_links: int, triangle: bool = False
+) -> dict[int, bool]:
+    """Per-link verdict of `is_physical_consistent` (massless links pass)."""
+    out = {}
+    for i in range(num_links):
+        p = params[i * 10 : i * 10 + 10]
+        if np.all(np.abs(p) < 1e-12):
+            out[i] = True
+            continue
+        M = pseudo_inertia(p) if triangle else spatial_inertia_6x6(p)
+        ev = np.linalg.eigvalsh(M)
+        out[i] = bool(ev[0] >= -1e-10 * max(1.0, abs(ev[-1])))
+    return out
+
+
+def params_link_to_bary(params: np.ndarray, num_model_params: int) -> np.ndarray:
+    """Convert link-frame standard params [m, m*c, I@origin] to
+    barycentric [m, c, I@COM] for display/URDF (reference
+    helpers.paramsLink2Bary, identification/helpers.py:374-407).
+    Friction columns (beyond num_model_params) pass through."""
+    out = np.array(params, dtype=float, copy=True)
+    for i in range(0, num_model_params, 10):
+        m = out[i]
+        if abs(m) > 1e-12:
+            c = out[i + 1 : i + 4] / m
+        else:
+            c = np.zeros(3)
+        out[i + 1 : i + 4] = c
+        I_origin = inertia_tensor_from_vec(out[i + 4 : i + 10])
+        I_com = I_origin - m * (np.dot(c, c) * np.eye(3) - np.outer(c, c))
+        out[i + 4 : i + 10] = I_com[np.triu_indices(3)]
+    return out
+
+
+def params_bary_to_link(params: np.ndarray, num_model_params: int) -> np.ndarray:
+    """Inverse of params_link_to_bary (reference helpers.py:409+)."""
+    out = np.array(params, dtype=float, copy=True)
+    for i in range(0, num_model_params, 10):
+        m = out[i]
+        c = out[i + 1 : i + 4].copy()
+        out[i + 1 : i + 4] = m * c
+        I_com = inertia_tensor_from_vec(out[i + 4 : i + 10])
+        I_origin = I_com + m * (np.dot(c, c) * np.eye(3) - np.outer(c, c))
+        out[i + 4 : i + 10] = I_origin[np.triu_indices(3)]
+    return out

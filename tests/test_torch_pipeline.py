@@ -170,10 +170,35 @@ assert torch.isfinite(posture.posture_objective(m, opt)(torch.ones((2, 5 * m.num
 """
 
 
+# then the console report, the timing utilities, the viewers and the TCP
+# robot back-end, each called once (the report's text is kept off stdout)
+_SLICE6 = """
+import contextlib, io, socket
+from flobaroid_tpu_torch import output, visualizer, webgl_viewer
+from flobaroid_tpu_torch.robot_io import tcp_bridge
+from flobaroid_tpu_torch.utils import timing
+with timing.Timer() as t, contextlib.redirect_stdout(io.StringIO()):
+    text = output.OutputConsole(idf).render()
+assert "torque estimation error" in text and t.interval > 0
+viz = visualizer.Visualizer(m.tree, m.engine, draw_meshes=False, device="cpu")
+assert np.all(np.isfinite(viz._link_world(np.zeros(m.num_dofs))[1]))
+webgl_viewer.export_webgl(viz, np.zeros((3, m.num_dofs)), "viewer.html", step=1)
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+try:
+    tcp_bridge.ExcitationClient(port=port, timeout=2.0)
+    raise AssertionError("a client connected where no server listens")
+except ConnectionRefusedError:
+    pass
+"""
+
+
 def _assert_port_loads_neither_jax_nor_yaml(tmp_path, case, **over):
     """A CPU identify in a fresh process, followed by one call into each
-    module of the mesh tier, the posture optimizer, the Lagrangian oracle
-    and the model analyses, loads no jax, no yaml and no flobaroid_tpu
+    module of the mesh tier, the posture optimizer, the Lagrangian oracle,
+    the model analyses, the report, the timing utilities, the viewers and
+    the TCP robot back-end, loads no jax, no yaml and no flobaroid_tpu
     module."""
     src, opt = (ARM_URDF, {**BENCH, **over}) if case == "arm" else (H30_URDF, WALK)
     urdf = tmp_path / os.path.basename(src)
@@ -192,6 +217,7 @@ idf = Identification(opt, {str(urdf)!r}, device="cpu")
 idf.estimateParameters()
 assert idf.sdp.last_status.startswith("optimal"), idf.sdp.last_status
 {_SLICE5}
+{_SLICE6}
 print("jax" in sys.modules, "yaml" in sys.modules,
       any(m == "flobaroid_tpu" or m.startswith("flobaroid_tpu.") for m in sys.modules))
 """

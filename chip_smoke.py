@@ -103,6 +103,28 @@ exits non-zero, printing no result):
      viewer in a fresh process that loads no JAX; the kernel is then held
      against its plain version at every shape these runs sent it that
      phase 2 did not check (the lengths follow the optimized trajectory);
+ 9b. sharding, the dry run, the tools and the examples, each phase
+     printing the card's name and power limit, the card count, the mesh's
+     devices, its seconds and its kernel launches: the arm's N = 60 000
+     identify with shardSamples 4 (on phase 3's structural cache) and
+     humanoid30 walking with shardSamples 2, each held to bench's gates
+     and to its unsharded run above (xBase 1e-4 relative, residual 1e-3
+     points, the same SDP status); humanoid30's structural Gram with
+     shardSamples 4 (four launches at 18 000 x 1 x 430, rank 310, within
+     1e-6 of max|G| of phase 4's unsharded miss); entry() and
+     dryrun_multichip(max(2, cards)) of flobaroid_tpu_torch.parallel
+     (its own parities); the tools and examples through their main(argv):
+     csv2npz --resimulate-torques (card vs CPU), getMaxInertia (card vs
+     CPU f64, 1e-4), createNoisyURDF, scaleInertia, the sensor-placement
+     study (the JAX figures, equal to the CPU f64), the CAD study
+     (REPRODUCED) and the walkman flow (its trajectory stage at the
+     smallest budget, `reduced`; 10 periods simulated and identified, 5
+     more held out; tests/test_walkman_flow.py's gates); last the arm's
+     trajectory objective with shardCandidates 2 (the first CEM generation
+     and one AL stage of 8 restarts x 40 steps off the kink at q0 = 0, in
+     f32, and the stage again in f64: within 1e-5). Several shards share
+     a card when there are fewer cards than shards. K1 is held against
+     its plain version at every shape these paths sent it;
  10. device times from torch.profiler of the kernel and of the library
      call (the einsum) in turns at every checked shape, and the kernel's
      share of its bound, and the kernel launches of one full-width mesh
@@ -263,16 +285,23 @@ def event_times_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 20, sessions: int = 3) -> tuple[float, list[str]]:
+# how many profiler sessions each device_ms call needed: {sessions: calls}
+PROFILER_SESSIONS: Counter = Counter()
+
+
+def device_ms(fn, reps: int = 20, sessions: int = 6) -> tuple[float, list[str]]:
     """Device time of one call: the CUDA kernels' time in a torch.profiler
     window of `reps` calls, over `reps`, and the kernels' names. A session
     now and then records no kernel at all (seen once in ~30 sessions of
-    one process on an H100); such a session is reported and run again."""
+    one process on an H100, and three times in a row once, at a 0.015 ms
+    kernel); such a session is reported and run again with a window twice
+    as long. The sessions each call needed are counted in
+    PROFILER_SESSIONS and printed at the end of the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(sessions):
+    for session in range(1, sessions + 1):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -281,9 +310,11 @@ def device_ms(fn, reps: int = 20, sessions: int = 3) -> tuple[float, list[str]]:
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if kernels:
+            PROFILER_SESSIONS[session] += 1
             return (sum(e.device_time_total for e in kernels) / 1e3 / reps,
                     sorted({e.name for e in kernels}))
         print("torch.profiler recorded no CUDA kernel; profiling again", file=sys.stderr)
+        reps *= 2
     raise RuntimeError(f"chip smoke check failed: torch.profiler recorded no CUDA kernel "
                        f"in {sessions} sessions")
 
@@ -319,6 +350,10 @@ def physically_consistent(idf) -> bool:
 # columns, the suspended leg). The quick start's streamed identify against
 # the JAX package sends one chunk of CLI_JAX_N x 7 x 82; its other shapes
 # follow the optimized trajectory's length and are checked after the run.
+# The sharded runs send each shard of a chunk: the arm's 4096 and 2656 over
+# 4 shards (1024, 664), the walking chunk and tail over 2 (2048, 741), and
+# humanoid30's structural 2000 states over 4 (500 states, 18 000 rows); the
+# dry run's and the examples' shapes are checked after their runs.
 # The extra shapes are run by no path here.
 # `write_cli_trajectory`'s length: one period at the drawn pulsation, 100 Hz
 CLI_JAX_N = 519
@@ -335,6 +370,11 @@ KERNEL_SHAPES = [
     ("trajectory_structural_B1_M14000_C101", *TRAJ_STRUCTURAL_SHAPE, True),
     ("suspended_structural_B1_M72000_C340", *SUSPENDED_STRUCTURAL_SHAPE, True),
     (f"cli_vs_jax_B7_N{CLI_JAX_N}_C82", CLI_JAX_N, 7, 82, True),
+    ("sharded_arm_chunk_B7_N1024_C82", 1024, 7, 82, True),
+    ("sharded_arm_tail_B7_N664_C82", 664, 7, 82, True),
+    ("sharded_walking_chunk_B36_N2048_C432", 2048, 36, 432, True),
+    ("sharded_walking_tail_B36_N741_C432", 741, 36, 432, True),
+    ("sharded_structural_B1_M18000_C430", 18000, 1, 430, True),
     ("extra_one_call_B7_N60000_C82", 60000, 7, 82, False),
     ("extra_ragged_M1037_C37", 1037, 1, 37, False),
 ]
@@ -459,7 +499,6 @@ def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
     t_init = time.perf_counter() - t0
     structural_launches = gram.launches - start
     samples = make_samples(idf.model, n)
-    chunk = int(opt["gramChunk"])
     walls, launches_per_pass = [], []
     for _ in range(1 + warm):
         before = gram.launches
@@ -485,6 +524,7 @@ def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
         physically_consistent=physically_consistent(idf),
         sdp_status=idf.sdp.last_status, sdp_info=idf.sdp.last_info,
         G_rows_device=str(m.G_rows.device),
+        mesh=[str(d) for d in m._sample_mesh().devices],
         structural_launches=structural_launches, launches_per_pass=launches_per_pass,
         launch_shapes=sorted([*k, c] for k, c in shapes.items()),
         xBase=m.xBase.tolist(),
@@ -498,8 +538,11 @@ def run_main_path(gram, urdf: str, n: int, warm: int, device: str, label: str,
     if device == "cuda":
         if cache_miss:
             check(structural_launches > 0, f"{label}: no Gram launch in _random_gram")
-        check(all(k == -(-n // chunk) for k in launches_per_pass),
-              f"{label}: {launches_per_pass} Gram launches per pass, not one per chunk")
+        # one launch per chunk, or per shard of a chunk with shardSamples > 1
+        pieces = len(m._sample_pieces(idf.data.num_used_samples))
+        check(all(k == pieces for k in launches_per_pass),
+              f"{label}: {launches_per_pass} Gram launches per pass, not one per chunk "
+              f"or shard ({pieces})")
         check(set(shapes) <= CHECKED_SHAPES,
               f"{label}: launches at {sorted(shapes)}, not all checked in phase 2")
     return res
@@ -545,13 +588,7 @@ def run_walking_leg(gram, tmp: str) -> dict:
     check(res["num_base_params"] == H30_RANK, f"walking: rank {res['num_base_params']}")
     check(all(k == 4 for k in res["launches_per_pass"]),
           f"walking: {res['launches_per_pass']} launches per pass, not 4")
-    dres = abs(res["res_error_pct"] - WALK_RES_ERROR_PCT)
-    check(dres <= 0.005, f"walking: torque residual {res['res_error_pct']} % is {dres} "
-                         f"percentage points from {WALK_RES_ERROR_PCT}")
-    check(res["base_param_rel_err"] < 1e-3,
-          f"walking: base distance {res['base_param_rel_err']} >= 1e-3")
-    check(res["base_cond"] is not None and abs(res["base_cond"] / WALK_BASE_COND - 1) <= 0.02,
-          f"walking: base cond {res['base_cond']} not within 2 % of {WALK_BASE_COND}")
+    walking_gates("walking", res)
     return res
 
 
@@ -1840,6 +1877,426 @@ def compare_cuda_cpu(gram, label: str, tol: float, **kw) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# sharding (shardSamples, shardCandidates, the dry run), the tools and
+# the examples
+# ----------------------------------------------------------------------
+SHARD_TOL_XBASE = 1e-4  # sharded vs unsharded on the card, relative
+SHARD_TOL_RES_PCT_POINTS = 1e-3
+SHARD_TOL_GRAM = 1e-6  # of max|G|
+SHARD_TOL_CANDIDATES = 1e-5  # of the largest |f| and |g|
+# sharded restarts against the same restarts run unsharded in batches of
+# the shard's size: the same kernels at the same shapes
+SHARD_TOL_SAME_BATCH = 1e-12
+# examples/sensor_placement_study.py's figures of record (the JAX package,
+# f64, 2000 states): the triple and the gain of each sensor set
+SENSOR_STUDY_JAX = dict(triple=(83, 220, 120, 340),
+                        gains={"feet": 20, "wrists": 6, "feet+wrists": 26})
+# the walkman flow's trajectory stage at the smallest budget the options
+# accept (one CEM generation of 4 candidates, no local stage); bench's
+# budget takes 37-77 min on the card (PERF.md section 5)
+WALKMAN_TRAJECTORY_CUT = dict(globalOptSize=4, globalOptIterations=1, globalOptRestarts=1,
+                              useLocalOptimization=0)
+WALKMAN_HELD_OUT_PERIODS = 5  # simulated after the example's FLOW_PERIODS (10), held out
+
+
+def shard_fields(devices, seconds: float, launches: int) -> dict:
+    import torch
+
+    return dict(card=gpu_name_power(), device_count=torch.cuda.device_count(),
+                mesh=[str(d) for d in devices], seconds=seconds, launches=launches)
+
+
+def sharded_vs_unsharded(label: str, res: dict, ref: dict) -> dict:
+    """xBase, residual and SDP status of a sharded run against the
+    unsharded run on the card."""
+    xs, xr = np.asarray(res["xBase"]), np.asarray(ref["xBase"])
+    out = dict(xBase_rel_diff=float(np.linalg.norm(xs - xr) / np.linalg.norm(xr)),
+               res_error_diff_pct_points=abs(res["res_error_pct"] - ref["res_error_pct"]),
+               sdp_status=[res["sdp_status"], ref["sdp_status"]])
+    check(out["xBase_rel_diff"] <= SHARD_TOL_XBASE,
+          f"{label}: xBase differs from the unsharded run by {out['xBase_rel_diff']}")
+    check(out["res_error_diff_pct_points"] <= SHARD_TOL_RES_PCT_POINTS,
+          f"{label}: residual differs by {out['res_error_diff_pct_points']} points")
+    check(res["sdp_status"] == ref["sdp_status"], f"{label}: sdp status {out['sdp_status']}")
+    return out
+
+
+def run_sharded_identify_arm(gram, tmp: str, ref: dict) -> int:
+    """The arm's N = 60 000 streamed identify with shardSamples 4 on the
+    structural cache the unsharded run wrote (one projection), held to
+    bench's gates and to the unsharded run. Returns its kernel launches."""
+    urdf = copy_urdf(ARM_URDF, os.path.join(tmp, "sharded_arm"), with_cache=False)
+    shutil.copy(os.path.join(tmp, "main_path_N60000", "sevenlink_arm.urdf.regressor.npz"),
+                urdf + ".regressor.npz")
+    gram.launches = 0  # the path's launches, counted from 0
+    t0 = time.perf_counter()
+    res = run_main_path(gram, urdf, 60000, 1, "cuda", "sharded_identify_arm_N60000",
+                        opt_overrides=dict(shardSamples=4), cache_miss=False)
+    seconds = time.perf_counter() - t0
+    check(res["structural_launches"] == 0, "sharded arm: the structural cache was not used")
+    cmp = sharded_vs_unsharded("sharded arm", res, ref)
+    launches = gram.launches
+    emit("sharded_identify_arm", **shard_fields(res["mesh"], seconds, launches),
+         launches_per_pass=res["launches_per_pass"], launch_shapes=res["launch_shapes"],
+         warm_s=res["warm_s"], unsharded_warm_s=ref["warm_s"], **cmp)
+    return launches
+
+
+def walking_gates(label: str, res: dict) -> None:
+    """BENCH_r05's accuracy on the walking leg."""
+    dres = abs(res["res_error_pct"] - WALK_RES_ERROR_PCT)
+    check(dres <= 0.005, f"{label}: torque residual {res['res_error_pct']} % is {dres} "
+                         f"percentage points from {WALK_RES_ERROR_PCT}")
+    check(res["base_param_rel_err"] < 1e-3,
+          f"{label}: base distance {res['base_param_rel_err']} >= 1e-3")
+    check(res["base_cond"] is not None and abs(res["base_cond"] / WALK_BASE_COND - 1) <= 0.02,
+          f"{label}: base cond {res['base_cond']} not within 2 % of {WALK_BASE_COND}")
+
+
+def run_sharded_walking(gram, tmp: str, ref: dict) -> int:
+    """humanoid30 walking (N = 13 770, bench.py's second leg) with
+    shardSamples 2 on the checked-in cache. Returns its kernel launches."""
+    urdf = copy_urdf(H30_URDF, os.path.join(tmp, "sharded_walk"), with_cache=True)
+    gram.launches = 0  # the path's launches, counted from 0
+    t0 = time.perf_counter()
+    res = run_main_path(gram, urdf, WALK_N, 1, "cuda", "sharded_walking_N13770", cache_miss=False,
+                        opt_overrides=dict(shardSamples=2), options=WALK_OPTIONS,
+                        make_samples=walking_samples)
+    seconds = time.perf_counter() - t0
+    check(res["structural_launches"] == 0, "sharded walking: the checked-in cache was not used")
+    check(res["num_base_params"] == H30_RANK, f"sharded walking: rank {res['num_base_params']}")
+    walking_gates("sharded walking", res)
+    cmp = sharded_vs_unsharded("sharded walking", res, ref)
+    launches = gram.launches
+    emit("sharded_walking", **shard_fields(res["mesh"], seconds, launches),
+         launches_per_pass=res["launches_per_pass"], launch_shapes=res["launch_shapes"],
+         warm_s=res["warm_s"], unsharded_warm_s=ref["warm_s"], **cmp)
+    return launches
+
+
+def run_sharded_random_gram(gram, tmp: str) -> int:
+    """humanoid30's structural Gram (2000 states, 72 000 rows, WALK_OPTIONS)
+    as a cache miss with shardSamples 4: one launch per shard, the rank of
+    the unsharded miss, the Gram within 1e-6 of max|G| of the one the
+    unsharded miss (phase 4) wrote. Returns its kernel launches."""
+    import torch
+
+    from flobaroid_tpu_torch.model import Model
+    from flobaroid_tpu_torch.utils.config import load_config
+
+    urdf = copy_urdf(H30_URDF, os.path.join(tmp, "sharded_miss"), with_cache=False)
+    gram.launches = 0  # the path's launches, counted from 0
+    before_shapes = Counter(gram.launch_shapes)
+    t0 = time.perf_counter()
+    model = Model(load_config(None, overrides={**WALK_OPTIONS, "shardSamples": 4}), urdf,
+                  device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = gram.launches
+    shapes = gram.launch_shapes - before_shapes
+    G4 = np.load(urdf + ".regressor.npz")["R"]
+    G1 = np.load(os.path.join(tmp, "walk_miss", "humanoid30.urdf.regressor.npz"))["R"]
+    err = float(np.abs(G4 - G1).max() / np.abs(G1).max())
+    emit("sharded_random_gram", **shard_fields(model._sample_mesh().devices, seconds, launches),
+         launch_shapes=sorted([*k, c] for k, c in shapes.items()),
+         num_base_params=model.num_base_params, gram_rel_diff=err)
+    check(dict(shapes) == {(18000, 1, 430): 4},
+          f"sharded random Gram: launches {dict(shapes)}, not four at 18000x1x430")
+    check(model.num_base_params == H30_RANK,
+          f"sharded random Gram: rank {model.num_base_params}, not {H30_RANK}")
+    check(err <= SHARD_TOL_GRAM, f"sharded random Gram: differs by {err} of max|G|")
+    return launches
+
+
+def run_sharded_candidates(traj_run: dict) -> dict:
+    """The arm's trajectory objective of seed 0 (phase 6), unsharded and
+    with shardCandidates 2: the first CEM generation (64 candidates) and
+    one augmented-Lagrangian stage of 8 restarts x 40 Adam steps, in f32
+    (the leg's objective) and the stage also in f64 on the card; f and g
+    within 1e-5 of their largest magnitude, n_obs equal. The card's
+    batched products round differently for 64 and 32 candidates (1e-7 in
+    the f32 CEM values), and Adam's normalized steps amplify that where a
+    gradient is zero to rounding, so these restarts start off the kink at
+    q0 = 0 (PERF.md, Findings). The restarts that start on it (candidates
+    0-7, candidate 0 the CEM mean) are run as one batch of 8, over the two
+    shards and as two unsharded batches of 4: the sharded run must equal
+    the unsharded batches of its shard's size to 1e-12, and its distance
+    from the batch of 8 is reported."""
+    import torch
+
+    from flobaroid_tpu_torch.excitation.objective import TrajectoryObjective
+    from flobaroid_tpu_torch.excitation.optimizer import build_bounds
+
+    obj, spec = traj_run["obj"], traj_run["spec"]
+    cfg = obj.config
+    obj64 = TrajectoryObjective(obj.model, cfg, spec, extra_constraints_fn=obj.extra_constraints_fn,
+                                n_extra_constraints=traj_run.get("n_collision_pairs") or None,
+                                dtype=torch.float64)
+    obj64._dopt_scale = obj.dopt_scale
+    X = first_generation(spec, cfg)
+    lo, hi = build_bounds(spec, cfg)
+    out, seconds = {}, {}
+    try:
+        for shards in (0, 2):
+            cfg["shardCandidates"] = shards
+            res, secs = {}, {}
+            t0 = time.perf_counter()
+            res["cem_f32"] = obj.evaluate_batch(X)
+            torch.cuda.synchronize()
+            secs["cem_f32"] = time.perf_counter() - t0
+            m = res["cem_f32"][1].shape[1]
+            for name, o in (("al_f32", obj), ("al_f64", obj64)):
+                t0 = time.perf_counter()
+                # X[0] is the CEM mean, on the kink at q0 = 0 where the
+                # gradient is zero to rounding and Adam's first normalized
+                # steps follow the rounding's sign (ROADMAP queue 3): the
+                # restarts start off it
+                Xo = o.al_refine_batch(X[1:9], lo, hi, np.zeros((8, m)), np.full(8, 10.0),
+                                       lr=0.01, n_steps=40)
+                res[name] = o.evaluate_batch(Xo)
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+            out[shards], seconds[shards] = res, secs
+        mesh = obj._candidate_mesh()
+        # the restarts on the kink: one batch of 8, two shards of 4, two
+        # unsharded batches of 4
+        kink = {}
+        for name, o in (("al_f32", obj), ("al_f64", obj64)):
+            def stage(rows, shards, o=o):
+                cfg["shardCandidates"] = shards
+                return o.al_refine_batch(X[rows], lo, hi, np.zeros((rows.stop - rows.start, m)),
+                                         np.full(rows.stop - rows.start, 10.0),
+                                         lr=0.01, n_steps=40)
+
+            runs = dict(batch8=stage(slice(0, 8), 0), sharded2x4=stage(slice(0, 8), 2),
+                        split2x4=np.concatenate([stage(slice(0, 4), 0), stage(slice(4, 8), 0)]))
+            cfg["shardCandidates"] = 0
+            kink[name] = {k: o.evaluate_batch(v) for k, v in runs.items()}
+    finally:
+        cfg["shardCandidates"] = 0
+
+    def diff(a, b):
+        (f2, g2, n2), (f0, g0, n0) = a, b
+        return dict(f_rel_diff=float(np.abs(f2 - f0).max() / np.abs(f0).max()),
+                    g_rel_diff=float(np.abs(g2 - g0).max() / np.abs(g0).max()),
+                    n_obs_equal=bool(np.array_equal(n2, n0)),
+                    finite=bool(np.all(np.isfinite(f2)) and np.all(np.isfinite(g2))))
+
+    diffs = {name: diff(out[2][name], out[0][name]) for name in out[0]}
+    kink_diffs = {f"kink_{name}": dict(
+        sharded_vs_batch8=diff(r["sharded2x4"], r["batch8"]),
+        sharded_vs_split=diff(r["sharded2x4"], r["split2x4"])) for name, r in kink.items()}
+    emit("sharded_candidates", **shard_fields(mesh.devices, sum(seconds[2].values()), 0),
+         candidates=len(X), al_restarts=8, al_steps=40, seconds_by_shards=seconds, **diffs,
+         **kink_diffs)
+    for name, d in diffs.items():
+        check(d["finite"], f"sharded candidates ({name}): not finite")
+        check(d["f_rel_diff"] <= SHARD_TOL_CANDIDATES and d["g_rel_diff"] <= SHARD_TOL_CANDIDATES,
+              f"sharded candidates ({name}): f/g differ by {d}")
+        check(d["n_obs_equal"], f"sharded candidates ({name}): n_obs differ")
+    for name, d in kink_diffs.items():
+        d = d["sharded_vs_split"]
+        check(d["finite"] and d["n_obs_equal"]
+              and max(d["f_rel_diff"], d["g_rel_diff"]) <= SHARD_TOL_SAME_BATCH,
+              f"sharded candidates ({name}): the shards differ from unsharded batches of "
+              f"their size by {d}")
+    return diffs
+
+
+def run_parallel_dryrun(gram, kern: dict) -> int:
+    """entry() on the card, then dryrun_multichip(max(2, cards)): the
+    production sharded paths against their unsharded runs; the kernel is
+    then held against its plain version at every shape they sent it.
+    Returns the kernel launches of the run (the comparison's excluded)."""
+    import torch
+
+    from flobaroid_tpu_torch.parallel.dryrun import dryrun_multichip, entry
+    from flobaroid_tpu_torch.parallel.mesh import make_mesh
+
+    n = max(2, torch.cuda.device_count())
+    gram.launches = 0  # the path's launches, counted from 0
+    before_shapes = Counter(gram.launch_shapes)
+    t0 = time.perf_counter()
+    fn, args = entry()
+    G, tau = fn(*args)
+    check(G.is_cuda and bool(torch.isfinite(G).all()) and bool(torch.isfinite(tau).all()),
+          "parallel dry run: entry() not finite on the card")
+    out = dryrun_multichip(n)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = gram.launches
+    shapes = gram.launch_shapes - before_shapes
+    emit("parallel_dryrun", **shard_fields(make_mesh(n).devices, seconds, launches),
+         parities=out, launch_shapes=sorted([*k, c] for k, c in shapes.items()))
+    check_path_shapes(gram, kern, shapes, "dryrun")
+    return launches
+
+
+def run_tools_and_examples(gram, kern: dict, tmp: str) -> int:
+    """The port's tools and examples through their main(argv) on the card
+    (the default device): csv2npz --resimulate-torques, getMaxInertia
+    (against the CPU in f64), createNoisyURDF, scaleInertia, the
+    sensor-placement study (against the CPU in f64 and the JAX figures),
+    the CAD study from the checked-in artifacts and the walkman flow.
+    Returns the kernel launches of the run (the comparison's excluded)."""
+    import torch
+
+    from flobaroid_tpu_torch.examples import cad_quality_study, copy_model
+    from flobaroid_tpu_torch.examples import sensor_placement_study as sensor_study
+    from flobaroid_tpu_torch.examples import walkman_full_flow as flow
+    from flobaroid_tpu_torch.models.urdf import load_urdf
+    from flobaroid_tpu_torch.tools import (
+        createNoisyURDF, csv2npz, getMaxInertia, scaleInertia)
+    from flobaroid_tpu_torch.utils.config import load_config
+
+    d = os.path.join(tmp, "tools")
+    os.makedirs(d, exist_ok=True)
+    gram.launches = 0  # the path's launches, counted from 0
+    before_shapes = Counter(gram.launch_shapes)
+    seconds = {}
+
+    # csv2npz: a 300-state arm log at 200 Hz with junk torques, the
+    # torques resimulated on the card and on the CPU
+    rng = np.random.default_rng(0)
+    t = np.arange(300) / 200.0
+    q = 0.6 * np.sin(2 * np.pi * 0.7 * t[:, None] + np.arange(7))
+    np.savetxt(os.path.join(d, "log.csv"),
+               np.hstack([t[:, None], q, 50.0 * rng.standard_normal((300, 7))]), delimiter=",")
+    cfg = os.path.join(d, "cfg.yaml")
+    with open(cfg, "w") as fh:
+        fh.write("floatingBase: 0\nverbose: 0\nexcitationFrequency: 200.0\n")
+    tau = {}
+    for device in ("cuda", "cpu"):
+        argv = ["--config", cfg, "--model", ARM_URDF, "--csv", os.path.join(d, "log.csv"),
+                "--pos-cols", "1:8", "--tau-cols", "8:15", "--resimulate-torques",
+                "--out", os.path.join(d, f"m_{device}.npz")]
+        t0 = time.perf_counter()
+        rc, _, _ = run_cli(csv2npz.main, argv + ([] if device == "cuda" else ["--device", "cpu"]))
+        seconds[f"csv2npz_{device}"] = time.perf_counter() - t0
+        check(rc == 0, f"csv2npz ({device}) returned {rc}")
+        tau[device] = np.load(os.path.join(d, f"m_{device}.npz"))["torques"]
+    csv_diff = float(np.abs(tau["cuda"] - tau["cpu"]).max() / np.abs(tau["cpu"]).max())
+    check(np.all(np.isfinite(tau["cuda"])) and csv_diff <= 1e-4,
+          f"csv2npz: resimulated torques differ from the CPU's by {csv_diff}")
+
+    # getMaxInertia: humanoid30, 200 states, one batched mass matrix
+    t0 = time.perf_counter()
+    _, text, _ = run_cli(getMaxInertia.main, [H30_URDF])  # 200 states
+    seconds["getMaxInertia_cuda"] = time.perf_counter() - t0
+    _, diag_card = getMaxInertia.max_inertia_diagonals(H30_URDF, 200)
+    _, diag_cpu = getMaxInertia.max_inertia_diagonals(H30_URDF, 200, device="cpu")
+    inertia_diff = float(np.abs(diag_card - diag_cpu).max() / np.abs(diag_cpu).max())
+    check(text.count("max apparent inertia") == 30 and inertia_diff <= 1e-4,
+          f"getMaxInertia: card vs CPU f64 {inertia_diff}")
+
+    # createNoisyURDF and scaleInertia
+    noisy, scaled = os.path.join(d, "noisy.urdf"), os.path.join(d, "scaled.urdf")
+    run_cli(createNoisyURDF.main, [ARM_URDF, noisy, "--seed", "0"])
+    run_cli(scaleInertia.main, [ARM_URDF, scaled, "--mass-scale", "2.0"])
+    pi0 = load_urdf(ARM_URDF).std_params()
+    check(not np.allclose(load_urdf(noisy).std_params(), pi0), "createNoisyURDF: no change")
+    check(np.allclose(load_urdf(scaled).std_params()[0::10], 2.0 * pi0[0::10]),
+          "scaleInertia: masses not doubled")
+
+    # the sensor-placement study on humanoid30 at its 2000 states
+    t0 = time.perf_counter()
+    (tri, study), _, _ = run_cli(lambda _: sensor_study.run(H30_URDF), None)
+    seconds["sensor_placement_cuda"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tri_cpu, study_cpu = sensor_study.run(H30_URDF, device="cpu")
+    seconds["sensor_placement_cpu_f64"] = time.perf_counter() - t0
+    triple = (tri["individually_identifiable"], tri["base_directions"],
+              tri["null_directions"], tri["n_inertial_params"])
+    gains = {k: v["gain"] for k, v in study["sets"].items()}
+    check(triple == SENSOR_STUDY_JAX["triple"] and gains == SENSOR_STUDY_JAX["gains"],
+          f"sensor placement: triple {triple}, gains {gains} differ from the JAX figures")
+    check(tri == tri_cpu and study == study_cpu, "sensor placement: card differs from CPU f64")
+
+    # the CAD study from the checked-in artifacts
+    t0 = time.perf_counter()
+    rc, text, _ = run_cli(cad_quality_study.main, [])
+    seconds["cad_quality_study"] = time.perf_counter() - t0
+    check(rc == 0 and "REPRODUCED" in text, f"cad_quality_study: {text[-400:]}")
+
+    # the walkman flow: the trajectory stage at the cut budget, then the
+    # example's FLOW_PERIODS (10) simulated, 5 more held out, identified
+    wd = os.path.join(tmp, "walkman")
+    urdf = copy_model(H30_URDF, wd)
+    opt = load_config(None, overrides={**flow.FLOW_OPTIONS, **WALKMAN_TRAJECTORY_CUT})
+    t0 = time.perf_counter()
+    (model, x, spec, info), _, _ = run_cli(lambda _: flow.trajectory_stage(urdf, opt), None)
+    seconds["walkman_trajectory"] = time.perf_counter() - t0
+    periods = 10
+    t0 = time.perf_counter()
+    meas, _, _ = run_cli(lambda _: flow.simulate_stage(
+        urdf, opt, model, spec, x, periods + WALKMAN_HELD_OUT_PERIODS), None)
+    seconds["walkman_simulate"] = time.perf_counter() - t0
+    n = len(meas["times"])
+    cut = n * periods // (periods + WALKMAN_HELD_OUT_PERIODS)
+    train, held = {}, {}
+    for k, v in meas.items():
+        a = np.asarray(v)
+        if a.ndim and a.shape[0] == n:
+            train[k], held[k] = a[:cut], a[cut:]
+        else:
+            train[k] = held[k] = v
+    held["times"] = held["times"] - held["times"][0]
+    np.savez(os.path.join(wd, "train.npz"), **train)
+    np.savez(os.path.join(wd, "val.npz"), **held)
+    t0 = time.perf_counter()
+    idf, text, _ = run_cli(lambda _: flow.identify_stage(
+        urdf, os.path.join(wd, "train.npz"), validation=os.path.join(wd, "val.npz")), None)
+    seconds["walkman_identify"] = time.perf_counter() - t0
+    rep, _, _ = run_cli(lambda _: flow.report(idf), None)
+    fc_med = float(np.median(np.abs(rep["fc"] - flow.FC_TRUE)))
+    fv_med = float(np.median(np.abs(rep["fv"] - flow.FV_TRUE)))
+    walkman = dict(n_train=cut, n_held_out=n - cut, trajectory_feasible=bool(info["feasible"]),
+                   res_error_pct=rep["res_error"], base_dist=rep["base_dist"],
+                   sdp_status=rep["sdp_status"], consistent=rep["consistent"],
+                   val_nrms_pct=idf.val_nrms, fc_median_err=fc_med, fv_median_err=fv_med,
+                   G_rows_device=str(idf.model.G_rows.device),
+                   reduced=dict(trajectory_stage=WALKMAN_TRAJECTORY_CUT,
+                                held_out_periods=WALKMAN_HELD_OUT_PERIODS))
+    torch.cuda.synchronize()
+    launches = gram.launches
+    shapes = gram.launch_shapes - before_shapes
+    emit("tools_and_examples", card=gpu_name_power(), device_count=torch.cuda.device_count(),
+         seconds=seconds, launches=launches, launch_shapes=sorted([*k, c] for k, c in shapes.items()),
+         csv2npz_card_vs_cpu=csv_diff, getMaxInertia_card_vs_cpu_f64=inertia_diff,
+         sensor_placement=dict(triple=triple, gains=gains), walkman=walkman)
+    check(walkman["res_error_pct"] < 5.0, f"walkman: residual {walkman['res_error_pct']} %")
+    check(walkman["base_dist"] < 0.10, f"walkman: base distance {walkman['base_dist']}")
+    check(walkman["sdp_status"] in ("optimal", "stalled"), f"walkman: sdp {walkman['sdp_status']}")
+    check(walkman["consistent"], "walkman: not physically consistent")
+    check(walkman["val_nrms_pct"] is not None and walkman["val_nrms_pct"] < 3.0,
+          f"walkman: held-out NRMS {walkman['val_nrms_pct']}")
+    check(fc_med < 0.15 and fv_med < 0.15, f"walkman: friction medians {fc_med}, {fv_med}")
+    check(walkman["G_rows_device"].startswith("cuda"), "walkman: the identify left the card")
+    check_path_shapes(gram, kern, shapes, "tools_examples")
+    return launches
+
+
+def run_sharding_tools_examples(gram, kern: dict, tmp: str, arm_ref: dict, walk_ref: dict,
+                             traj_run: dict) -> dict:
+    """The sharded paths, the dry run, the tools and the examples; returns
+    each path's kernel launches (those of the comparisons with the plain
+    version excluded)."""
+    paths = {
+        "sharded_identify_arm": run_sharded_identify_arm(gram, tmp, arm_ref),
+        "sharded_walking": run_sharded_walking(gram, tmp, walk_ref),
+        "sharded_random_gram": run_sharded_random_gram(gram, tmp),
+        "parallel_dryrun": run_parallel_dryrun(gram, kern),
+        "tools_and_examples": run_tools_and_examples(gram, kern, tmp),
+    }
+    # the candidate axis runs no Gram: the objective's Grams are plain
+    # batched products, as in the JAX package
+    before = gram.launches
+    run_sharded_candidates(traj_run)
+    check(gram.launches == before, "sharded candidates launched the Gram kernel")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1866,15 +2323,15 @@ def main() -> int:
     try:
         # phase 3: the arm; each path's launches are counted from 0
         gram.launches = 0
-        card_ranks = {}
+        arm_runs = {}
         for label, n, warm in (("main_path_N2000", 2000, 5), ("main_path_N60000", 60000, 2)):
             urdf = copy_urdf(ARM_URDF, os.path.join(tmp, label), with_cache=False)
-            card_ranks[label] = run_main_path(gram, urdf, n, warm, "cuda", label)["num_base_params"]
+            arm_runs[label] = run_main_path(gram, urdf, n, warm, "cuda", label)
         arm_launches = gram.launches
         run_regressor_rate()
         # phase 4: the walking leg
         gram.launches = 0
-        run_walking_leg(gram, tmp)
+        walk_run = run_walking_leg(gram, tmp)
         walk_launches = gram.launches
         # phase 5: the CAD-study leg
         gram.launches = 0
@@ -1918,9 +2375,10 @@ def main() -> int:
                                opt_overrides=dict(randomSamples=600), cache_miss=False)
         check(arm["res_error_diff_pct_points"] <= 1e-3,
               f"cuda vs cpu res_error diff {arm['res_error_diff_pct_points']}")
-        for label, rank in card_ranks.items():
-            check(rank == arm["num_base_params"],
-                  f"{label}: structural rank {rank} on the card, {arm['num_base_params']} on the CPU")
+        for label, r in arm_runs.items():
+            check(r["num_base_params"] == arm["num_base_params"],
+                  f"{label}: structural rank {r['num_base_params']} on the card, "
+                  f"{arm['num_base_params']} on the CPU")
         # humanoid30 walking at 1200 samples, generated once on the card
         walk_samples = {}
 
@@ -1934,6 +2392,11 @@ def main() -> int:
                          n=1200, warm=0, cache_miss=False, options=WALK_OPTIONS,
                          make_samples=card_walk_samples)
         essential_cuda_vs_cpu(gram)
+
+        # sharding (each path against its unsharded run above), the dry
+        # run, the tools and the examples
+        shard_paths = run_sharding_tools_examples(gram, kern, tmp, arm_runs["main_path_N60000"],
+                                               walk_run, traj_runs[0])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -1941,6 +2404,7 @@ def main() -> int:
           "the JAX package flobaroid_tpu was imported")
 
     phase_device_times(gram, kern)
+    emit("profiler_sessions", calls_by_sessions_needed=dict(sorted(PROFILER_SESSIONS.items())))
     count_verifier_launches(verifier_leg)
     # headline: the shape with the most kernel time per pass, the walking
     # leg's 4096-sample chunk; by_shape: every shape a path runs.
@@ -1952,7 +2416,7 @@ def main() -> int:
     main_shape = kern["walking_chunk_B36_N4096_C432"]
     by_path = {"arm": arm_launches, "walking": walk_launches, "cad_study": cad_launches,
                "trajectory": traj_launches, "suspended_objective": suspended_launches,
-               "simulate_and_identify": sim_launches, **extra_paths, **cli_paths}
+               "simulate_and_identify": sim_launches, **extra_paths, **cli_paths, **shard_paths}
     for path, n in by_path.items():
         check(n > 0, f"the {path} path launched the Gram kernel no time")
     print(json.dumps({"kernels": [{

@@ -21,7 +21,10 @@ its own copies of the numpy/scipy/xml-only code it needs
 (`models/urdf.py`, `models/geometry.py`, `utils/helpers.py`,
 `identification/least_squares.py`, `output.py`, `robot_io/`). Only its
 tests import both packages. The command line is `cli/`, one module per
-root script of the JAX package (`python -m flobaroid_tpu_torch.cli.<name>`).
+root script of the JAX package (`python -m flobaroid_tpu_torch.cli.<name>`);
+`tools/` and `examples/` are the port's copies of the JAX package's tools
+and examples, and `parallel/` shards samples and candidates over devices
+in one process (`shardSamples`, `shardCandidates`).
 """
 
 __version__ = "0.1.0"

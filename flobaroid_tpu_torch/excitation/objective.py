@@ -18,19 +18,26 @@ batched Cholesky and constraints. The K candidates are independent, so
 on the (K, dim) tensor. The computation runs on the model's device, in
 `dtype` (f32 on the card with TF32 off, see device.py; f64 in the CPU
 parity tests).
+
+With `shardCandidates: n > 1` in the configuration, `evaluate_batch`
+and `al_refine_batch` pad the batch to a multiple of n, split it over a
+`parallel.mesh` of n shards (each device with its own copy of the
+chain's constants) and gather the results to the host, cut back to the
+batch (flobaroid_tpu/excitation/objective.py:575-600, :657-677).
 """
 
 from __future__ import annotations
 
 import inspect
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
 import torch
 
 from ..dynamics import spatial as sp
-from ..identification.identifier import not_ported
 from ..model import Model
+from ..parallel.mesh import Mesh, make_mesh, pad_to_multiple, shard_batch
 from ..utils.tensor_ops import clip, maximum
 from .trajectory import FourierSpec, fourier_traj
 
@@ -47,8 +54,6 @@ class TrajectoryObjective:
         n_extra_constraints: int | None = None,
         dtype=torch.float32,
     ):
-        if int(config.get("shardCandidates", 0) or 0) > 1:
-            raise not_ported("shardCandidates > 1 (candidate sharding over devices)")
         self.model = model
         self.config = config
         self.spec = spec
@@ -139,6 +144,7 @@ class TrajectoryObjective:
         else:
             self.min_vel = float(mv)
         self._dopt_scale = None
+        self._cand_mesh = None
         self._build()
 
     # ------------------------------------------------------------------
@@ -146,14 +152,10 @@ class TrajectoryObjective:
         return torch.as_tensor(np.asarray(a, dtype=float), dtype=self.dtype, device=self.device)
 
     def _build(self):
-        """Constants of the chain as tensors on the model's device."""
+        """Settings of the chain that no device holds; its tensors are
+        made per device by `_consts`."""
         cfg = self.config
         names = list(self.model.jointNames)
-        self._times = self._t(self.times)
-        self._Pb = self._t(self.Pb)
-        self._pi = self._t(self.pi_urdf)
-        self._pos_lo, self._pos_hi = self._t(self.pos_lo), self._t(self.pos_hi)
-        self._vel_lim, self._tau_lim = self._t(self.vel_lim), self._t(self.tau_lim)
         self._delta_frac = float(cfg.get("doptRegularization", 1e-4))
         # per-joint excitation targets (beyond the reference, whose
         # targets are scalars, trajectoryOptimizer.py:445-482): a dict
@@ -162,13 +164,12 @@ class TrajectoryObjective:
         vt_cfg = cfg.get("trajectoryTargetVelocity", 0.0)
         self._per_joint_util = isinstance(tu_cfg, dict)
         self._target_util = (
-            self._t([float(tu_cfg.get(j, 0.25)) for j in names])
+            np.array([float(tu_cfg.get(j, 0.25)) for j in names])
             if self._per_joint_util else float(tu_cfg))
         self._per_joint_vel = isinstance(vt_cfg, dict)
         if self._per_joint_vel:
-            vt = np.array([float(vt_cfg.get(j, 0.0)) for j in names])
-            self._vel_target = self._t(vt)
-            self._vel_target_on = bool(np.any(vt > 0))
+            self._vel_target = np.array([float(vt_cfg.get(j, 0.0)) for j in names])
+            self._vel_target_on = bool(np.any(self._vel_target > 0))
         else:
             self._vel_target = float(vt_cfg)
             self._vel_target_on = self._vel_target > 0
@@ -177,14 +178,8 @@ class TrajectoryObjective:
         self._sym = bool(cfg["identifySymmetricVelFriction"])
         self._grav_only = bool(cfg["identifyGravityParamsOnly"])
         self._stribeck_v = float(cfg.get("stribeckVelocity", 0) or 0)
-        self._keep_grav = (
-            torch.as_tensor([p for p in range(10 * self.model.num_links) if p % 10 < 4],
-                            device=self.device)
-            if self._grav_only else None)
-        self._yty = self._t(self.yty_prior) if self.yty_prior is not None else None
         self._min_vel_on = bool(np.any(np.asarray(self.min_vel) > 0))
-        self._min_vel = self._t(np.ones(len(names)) * self.min_vel)
-        self._att0 = self._t(self._att_rpy0) if self._att_rpy0 is not None else None
+        self._const_cache: dict = {}
         self._dt_samp = float(self.times[1] - self.times[0])
         self._extra_takes_base = False
         if self.extra_constraints_fn is not None:
@@ -194,11 +189,39 @@ class TrajectoryObjective:
             except (TypeError, ValueError):
                 self._extra_takes_base = False
 
+    def _consts(self, device) -> SimpleNamespace:
+        """Constants of the chain as tensors on `device`, built once per
+        device (the model's, and each candidate shard's)."""
+        key = str(device)
+        c = self._const_cache.get(key)
+        if c is None:
+            def t(a):
+                return torch.as_tensor(np.asarray(a, dtype=float), dtype=self.dtype,
+                                       device=device)
+
+            def opt_t(a):
+                return None if a is None else t(a)
+
+            c = self._const_cache[key] = SimpleNamespace(
+                times=t(self.times), Pb=t(self.Pb), pi=t(self.pi_urdf),
+                pos_lo=t(self.pos_lo), pos_hi=t(self.pos_hi),
+                vel_lim=t(self.vel_lim), tau_lim=t(self.tau_lim),
+                target_util=t(self._target_util) if self._per_joint_util else self._target_util,
+                vel_target=t(self._vel_target) if self._per_joint_vel else self._vel_target,
+                keep_grav=(torch.as_tensor(
+                    [p for p in range(10 * self.model.num_links) if p % 10 < 4], device=device)
+                    if self._grav_only else None),
+                yty=opt_t(self.yty_prior),
+                min_vel=t(np.ones(len(self.model.jointNames)) * self.min_vel),
+                att0=opt_t(self._att_rpy0))
+        return c
+
     def _base_motion(self, Q, V, A):
         """Suspended-base series of the trajectories (K, N, n):
         (BR (K,N,3,3) world_R_base, pos (K,N,3), BV, BA (K,N,6))."""
         sus = self.suspended
-        rpy_s, pos_s, vel_s = sus.simulate_core(Q, V, A, self._att0, self._dt_samp)
+        att0 = self._consts(Q.device).att0
+        rpy_s, pos_s, vel_s = sus.simulate_core(Q, V, A, att0, self._dt_samp)
         acc_s = sus.acceleration_from_velocity(vel_s, self._dt_samp)
         # storage convention: world_R_base = RPY(rpy)^T
         BR = sp.rpy_to_rot(rpy_s).transpose(-1, -2)
@@ -230,8 +253,9 @@ class TrajectoryObjective:
         """The chain for a population X (K, dim): (neg_logdet, f1, f2, f3,
         f4 (K,), g (K, n_constraints), n_observable (K,), chol_ok (K,))."""
         eng = self.model.engine
+        c = self._consts(X.device)
         fbr = 6 if self.floating else 0
-        Q, V, A = fourier_traj(self.spec, X.to(self.dtype), self._times)  # (K, N, n)
+        Q, V, A = fourier_traj(self.spec, X.to(self.dtype), c.times)  # (K, N, n)
         K, N, nd = Q.shape
         Qf, Vf, Af = (a.reshape(K * N, nd) for a in (Q, V, A))
         BR = pos_s = None
@@ -241,28 +265,28 @@ class TrajectoryObjective:
                 Y = eng.regressor_batch(Qf, Vf, Af, BR.reshape(K * N, 3, 3),
                                         BV.reshape(K * N, 6), BA.reshape(K * N, 6))
             else:
-                eye = torch.eye(3, dtype=self.dtype, device=self.device).expand(K * N, 3, 3)
-                zero6 = torch.zeros((K * N, 6), dtype=self.dtype, device=self.device)
+                eye = torch.eye(3, dtype=self.dtype, device=X.device).expand(K * N, 3, 3)
+                zero6 = torch.zeros((K * N, 6), dtype=self.dtype, device=X.device)
                 Y = eng.regressor_batch(Qf, Vf, Af, eye, zero6, zero6)
         else:
             Y = eng.regressor_batch(Qf, Vf, Af)
         # torques from the FULL inertial block (before any gravity-only
         # column subsetting)
-        tau = (Y @ self._pi).reshape(K, N, -1)
+        tau = (Y @ c.pi).reshape(K, N, -1)
         if self._grav_only:
-            Y = Y[:, :, self._keep_grav]
+            Y = Y[:, :, c.keep_grav]
         # base projection YB = [Y, F] @ Pb without forming [Y, F]
         P_in = Y.shape[-1]
         rows = Y.shape[1]
-        YB = Y.reshape(K, N * rows, P_in) @ self._Pb[:P_in]
+        YB = Y.reshape(K, N * rows, P_in) @ c.Pb[:P_in]
         if self._fric:
-            FB = self._friction_blocks(Vf) @ self._Pb[P_in:]  # (K*N, nd, nb)
+            FB = self._friction_blocks(Vf) @ c.Pb[P_in:]  # (K*N, nd, nb)
             YB = YB.reshape(K, N, rows, -1)
             YB = torch.cat([YB[:, :, :fbr], YB[:, :, fbr:] + FB.reshape(K, N, nd, -1)], dim=2)
             YB = YB.reshape(K, N * rows, -1)
         G = YB.transpose(1, 2) @ YB  # (K, nb, nb)
-        if self._yty is not None:
-            G = G + self._yty
+        if c.yty is not None:
+            G = G + c.yty
         # regularized -logdet via Cholesky: logdet(G + delta I) =
         # 2 sum log diag chol. lambda_max from a few power iterations,
         # differentiable through the short iteration like the JAX chain
@@ -286,15 +310,15 @@ class TrajectoryObjective:
         tau_absmax = torch.abs(tau[:, :, fbr:]).amax(dim=1)
 
         g = [
-            self._pos_lo - pos_min,
-            pos_max - self._pos_hi,
-            vel_absmax - self._vel_lim,
-            tau_absmax - self._tau_lim,
+            c.pos_lo - pos_min,
+            pos_max - c.pos_hi,
+            vel_absmax - c.vel_lim,
+            tau_absmax - c.tau_lim,
         ]
         if self._min_vel_on:
-            g.append(self._vel_lim * self._min_vel - vel_absmax)
+            g.append(c.vel_lim * c.min_vel - vel_absmax)
         if self.min_torque_util > 0:
-            g.append(self._tau_lim * self.min_torque_util - tau_absmax)
+            g.append(c.tau_lim * self.min_torque_util - tau_absmax)
         if self.extra_constraints_fn is not None:
             if self._extra_takes_base:
                 # pass the simulated (swung) base poses so collision
@@ -303,28 +327,28 @@ class TrajectoryObjective:
                 ge = self.extra_constraints_fn(Q, BR if pos_s is not None else None, pos_s)
             else:
                 ge = self.extra_constraints_fn(Q)
-            g.append(ge + extra_shift.to(ge.dtype))
+            g.append(ge + extra_shift.to(ge))
         g = torch.cat(g, dim=1)
 
         # soft costs (reference trajectoryOptimizer.py:445-499)
-        util = tau_absmax / self._tau_lim
+        util = tau_absmax / c.tau_lim
         um = util.mean(dim=1)
         f1 = torch.where(um > 0, util.std(dim=1, correction=0) / maximum(um, 1e-9),
                          torch.ones_like(um))
         if self._per_joint_util:
             # each joint must individually reach its target
-            f3 = maximum(1.0 - util / maximum(self._target_util, 1e-9), 0.0).mean(dim=1)
+            f3 = maximum(1.0 - util / maximum(c.target_util, 1e-9), 0.0).mean(dim=1)
         else:
-            f3 = maximum(1.0 - um / self._target_util, 0.0)
-        pos_util = (pos_max - pos_min) / (self._pos_hi - self._pos_lo)
+            f3 = maximum(1.0 - um / c.target_util, 0.0)
+        pos_util = (pos_max - pos_min) / (c.pos_hi - c.pos_lo)
         f2 = 1.0 - pos_util.mean(dim=1)
         f4 = torch.zeros_like(um)
         if self._vel_target_on:
             if self._per_joint_vel:
-                short = maximum(1.0 - vel_absmax / maximum(self._vel_target, 1e-9), 0.0)
-                f4 = torch.where(self._vel_target > 0, short, torch.zeros_like(short)).mean(dim=1)
+                short = maximum(1.0 - vel_absmax / maximum(c.vel_target, 1e-9), 0.0)
+                f4 = torch.where(c.vel_target > 0, short, torch.zeros_like(short)).mean(dim=1)
             else:
-                f4 = maximum(1.0 - vel_absmax / self._vel_target, 0.0).mean(dim=1)
+                f4 = maximum(1.0 - vel_absmax / c.vel_target, 0.0).mean(dim=1)
         return neg_logdet, f1, f2, f3, f4, g, n_observable, chol_ok
 
     def _evaluate(self, X, extra_shift):
@@ -417,14 +441,33 @@ class TrajectoryObjective:
             raise RuntimeError("call calibrate_scale(x0) first")
         return self._dopt_scale
 
+    def _candidate_mesh(self):
+        """The mesh of the `shardCandidates` shards (read from the
+        configuration at each call, as the JAX package does); one shard
+        on the objective's device when it is 0 or 1."""
+        n = int(self.config.get("shardCandidates", 0) or 0)
+        if self._cand_mesh is None or self._cand_mesh.size != max(n, 1):
+            self._cand_mesh = (make_mesh(n, device=self.device, axis="candidates") if n > 1
+                               else Mesh((self.device,), "candidates"))
+        return self._cand_mesh
+
     def evaluate(self, x):
-        f, g, n_obs = self.evaluate_batch(np.asarray(x)[None])
-        return float(f[0]), g[0], int(n_obs[0])
+        with torch.no_grad():
+            f, g, n_obs, _ = self._evaluate(self._x(x), self._shift_t)
+        return float(f[0]), g[0].double().cpu().numpy(), int(n_obs[0])
 
     def evaluate_batch(self, X):
+        """(f, g, n_obs) of the population X as host arrays: the batch
+        padded to a multiple of the candidate shards, each shard evaluated
+        on its device and the results cut back to the batch."""
+        mesh = self._candidate_mesh()
+        Xp, n = pad_to_multiple(np.atleast_2d(np.asarray(X, dtype=float)), mesh.size)
+        (Xs,) = shard_batch(mesh, Xp, dtype=self.dtype)
         with torch.no_grad():
-            f, g, n_obs, _ = self._evaluate(self._x(X), self._shift_t)
-        return (f.double().cpu().numpy(), g.double().cpu().numpy(), n_obs.cpu().numpy())
+            # every shard is launched before any result is read
+            outs = [self._evaluate(x, self._shift_t.to(x.device))[:3] for x in Xs]
+        f, g, n_obs = (np.concatenate([o[i].cpu().numpy() for o in outs])[:n] for i in range(3))
+        return f.astype(np.float64), g.astype(np.float64), n_obs
 
     def penalized_value_and_grad(self, x, weight):
         shift = self._shift_t
@@ -458,10 +501,19 @@ class TrajectoryObjective:
         """One augmented-Lagrangian Adam stage for K independent restarts
         advanced together (the reference runs IPOPT restarts as
         sequential processes; here the restart axis is the batch axis)."""
-        lam, rho, shift = self._t(LAM), self._t(RHO), self._shift_t
-        Xo, _ = self._adam(lambda X: self._al_value(X, lam, rho, shift),
-                           self._x(X), self._t(lo), self._t(hi), lr, n_steps)
-        return Xo.double().cpu().numpy()
+        mesh = self._candidate_mesh()
+        X = np.atleast_2d(np.asarray(X, dtype=float))
+        n = len(X)
+        padded = [pad_to_multiple(np.asarray(a, dtype=float), mesh.size)[0] for a in (X, LAM, RHO)]
+        lo_t, hi_t = self._t(lo), self._t(hi)
+        outs = []
+        for x, lam, rho in zip(*shard_batch(mesh, *padded, dtype=self.dtype)):
+            d = x.device
+            shift = self._shift_t.to(d)
+            Xo, _ = self._adam(lambda X, lam=lam, rho=rho, shift=shift: self._al_value(
+                X, lam, rho, shift), x, lo_t.to(d), hi_t.to(d), lr, n_steps)
+            outs.append(Xo)
+        return np.concatenate([o.double().cpu().numpy() for o in outs])[:n]
 
     def kinematics_batch(self, X):
         """Sampled (Q (K, N, n), base_rot (K, N, 3, 3), base_pos (K, N, 3))
@@ -470,7 +522,7 @@ class TrajectoryObjective:
         (reference optimizer.py:1099-1132). The base series are None
         without a suspended base."""
         with torch.no_grad():
-            Q, V, A = fourier_traj(self.spec, self._x(X), self._times)
+            Q, V, A = fourier_traj(self.spec, self._x(X), self._consts(self.device).times)
             out = (Q, None, None)
             if self.suspended is not None:
                 BR, pos_s, _, _ = self._base_motion(Q, V, A)

@@ -21,7 +21,9 @@ module's order, so both packages draw the same candidates from one seed.
 With `collisionMode` other than "capsule" the winner is verified against
 exact geometry (`collision_mesh.MeshCollisionVerifier`) and, where that
 fails, repaired by tightening the violated capsule constraints
-(`_mesh_backoff_refine`). Candidate sharding is not ported and raises.
+(`_mesh_backoff_refine`). With `shardCandidates: n > 1` the global
+search and the local stage run their batches over n candidate shards
+(`TrajectoryObjective.evaluate_batch`, `al_refine_batch`).
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ import time
 import numpy as np
 import torch
 
-from ..identification.identifier import not_ported
 from .objective import TrajectoryObjective
 from .trajectory import FourierSpec
 
@@ -476,8 +477,6 @@ def optimize_trajectory(model, config, yty_prior=None, seeds=None, rng=None):
     Mirrors TrajectoryOptimizer.optimizeTrajectory
     (trajectoryOptimizer.py:860) / runOptimizer (optimizer.py:1138)."""
     check_collisions = bool(config.get("checkCollisions", 1))
-    if int(config.get("shardCandidates", 0) or 0) > 1:
-        raise not_ported("shardCandidates > 1 (candidate sharding over devices)")
     rng = rng or np.random.default_rng(int(config.get("trajectoryOptSeed", 0)))
     nf_cfg = config.get("trajectoryNf", {}) or {}
     default_nf = int(config.get("trajectoryDefaultNf", 4))

@@ -23,11 +23,6 @@ from ..utils import helpers
 from . import least_squares as ls
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to flobaroid_tpu_torch yet (ROADMAP.md, queue 1)")
-
-
 def score_blocks(idf: "Identification"):
     """Block selection's scoring (Venture 2009; reference
     identifier.py:1564-1589 + data.py:205-344): ONE regressor pass over

@@ -1,10 +1,11 @@
-"""Least-squares estimation primitives (parameter stddev / WLS weights /
-std recovery / essential parameters). Host-side f64 parameter-space
+"""Least-squares estimation primitives (OLS / parameter stddev / WLS
+weights / std recovery / essential parameters). Host-side f64 parameter-space
 math; the heavy regressor work already happened on the device.
 
 The port's own copy of flobaroid_tpu/identification/least_squares.py
 (numpy and scipy only), the counterpart of the estimation methods in the
-reference's identifier.py (getStdDevForParams:343,
+reference's identifier.py (identifyBaseParameters:683,
+getStdDevForParams:343,
 findBaseEssentialParameters:372, identifyStandardParametersDirect:792).
 """
 
@@ -12,6 +13,15 @@ from __future__ import annotations
 
 import numpy as np
 import scipy.linalg as sla
+
+
+def ols(YBase: np.ndarray, tau: np.ndarray, contact_forces: np.ndarray | None = None):
+    """xBase = lstsq(YBase, tau) with contact-force correction
+    (reference identifier.py:705-717)."""
+    x = np.linalg.lstsq(YBase, tau, rcond=None)[0]
+    if contact_forces is not None and np.any(contact_forces):
+        x = x - np.linalg.pinv(YBase) @ contact_forces
+    return x
 
 
 def param_stddev(YBase, xBase, tauMeasured, tauEstimated, num_base_params):

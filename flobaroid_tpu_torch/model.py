@@ -20,7 +20,13 @@ What differs from the JAX module:
     host in f64, then the Grams with tau and cf appended;
   * the structural states are drawn from a `torch.Generator` seeded 0 on
     the model's device, so the structural Gram differs in value from the
-    JAX package's (its rank and column space do not).
+    JAX package's (its rank and column space do not);
+  * `shardSamples: n > 1` splits each chunk's samples into n contiguous
+    shard slices, shard i on device i of a `parallel.mesh.Mesh` (on one
+    card, all shards on it), in one process; every pass reduces or
+    concatenates the shards' results on the model's device in f64, in
+    shard order. The structural Gram draws the same states as unsharded
+    and splits each chunk's rows over the shards.
 
 Parameter layout (reference model.py:131-208): 10 inertial params per
 link [m, m*c, Ixx, Ixy, Ixz, Iyy, Iyz, Izz] about the link frame, then
@@ -40,6 +46,7 @@ from .device import resolve_device, torch_dtype
 from .dynamics.engine import DynamicsEngine, rpy_to_base_rot, rpy_to_base_rot_np
 from .models.urdf import RobotTree, joint_names_from_regressor_xml, load_urdf
 from .ops.gram import cat_padded, gram_batched
+from .parallel.mesh import Mesh, make_mesh, shard_slices
 from .utils import helpers
 
 
@@ -152,6 +159,7 @@ class Model:
             self.xStd = self.xStdModel.copy()
         self._staged: dict | None = None
         self._dataset_gen = 0
+        self._meshes: dict = {}
         # precision of the stored Grams (drives the QR rank threshold):
         # f64 exactly when the compute dtype is f64
         self._gram_dtype = (
@@ -242,9 +250,34 @@ class Model:
     def _compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.opt.get("computeDtype", "float32"))
 
-    def _to_dev(self, a) -> torch.Tensor:
+    def _to_dev(self, a, device=None) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=self._compute_dtype(),
-                               device=self.device)
+                               device=self.device if device is None else device)
+
+    def _sample_mesh(self) -> Mesh:
+        """The mesh of the `shardSamples` shards on the model's device
+        type; one shard on the model's device when it is 0 or 1."""
+        n = max(int(self.opt.get("shardSamples", 0) or 0), 1)
+        if n not in self._meshes:
+            self._meshes[n] = (make_mesh(n, device=self.device, axis="samples") if n > 1
+                               else Mesh((self.device,), "samples"))
+        return self._meshes[n]
+
+    def _sample_pieces(self, N: int) -> list[tuple[slice, torch.device]]:
+        """(slice, device) of every piece of N samples, in sample order:
+        chunks of `gramChunk` samples (rounded up to a multiple of the
+        shard count, as the JAX package does), each cut into the shard
+        slices of `parallel.mesh.shard_slices`, shard i on mesh device i.
+        A short tail leaves the last shards empty: no piece is made for
+        them."""
+        mesh = self._sample_mesh()
+        chunk = -(-int(self.opt.get("gramChunk", 4096)) // mesh.size) * mesh.size
+        pieces = []
+        for s0 in range(0, N, chunk):
+            c = min(chunk, N - s0)
+            for sl, dev in zip(shard_slices(c, mesh.size), mesh.devices):
+                pieces.append((slice(s0 + sl.start, s0 + sl.stop), dev))
+        return pieces
 
     def _gather_state(self, samples: dict, idx: np.ndarray):
         """Host state (Q, V, A, BR, BV, BA) of the samples idx; the base
@@ -328,24 +361,25 @@ class Model:
         if len(idx) == 0:
             return np.zeros((0, self.N_OUT))
         state = self._gather_state(samples, idx)
-        chunk = int(self.opt.get("gramChunk", 4096))
         pi = x[: self.num_model_params]
         parts = []
-        for s0 in range(0, len(idx), chunk):
-            sl = slice(s0, s0 + chunk)
+        for sl, dev in self._sample_pieces(len(idx)):
             chunk_state = [None if a is None else a[sl] for a in state]
-            _, sim_c = self._batched_rows(*chunk_state, pi=pi, sim_only=True)
-            parts.append(sim_c)
+            _, sim_c = self._batched_rows(*chunk_state, pi=pi, sim_only=True, device=dev)
+            parts.append(sim_c.to(self.device))
         sim = torch.cat(parts).double().cpu().numpy()
         sim[:, self.fb:] += self.friction_torques(samples, idx, x)
         return sim
 
-    def _batched_rows(self, Q, V, A, BR=None, BV=None, BA=None, pi=None, sim_only=False):
+    def _batched_rows(self, Q, V, A, BR=None, BV=None, BA=None, pi=None, sim_only=False,
+                      device=None):
         """Inertial regressor blocks (N, rows, 10L) and, when pi is given,
-        simulated inverse-dynamics rows (N, rows), as device tensors."""
-        base = [None if a is None else self._to_dev(a) for a in (BR, BV, BA)]
-        Y = self.engine.regressor_batch(self._to_dev(Q), self._to_dev(V), self._to_dev(A), *base)
-        sim = None if pi is None else Y @ self._to_dev(pi)
+        simulated inverse-dynamics rows (N, rows), as tensors on `device`
+        (default: the model's)."""
+        base = [None if a is None else self._to_dev(a, device) for a in (BR, BV, BA)]
+        Y = self.engine.regressor_batch(self._to_dev(Q, device), self._to_dev(V, device),
+                                        self._to_dev(A, device), *base)
+        sim = None if pi is None else Y @ self._to_dev(pi, device)
         return (None if sim_only else Y), sim
 
     def computeRegressors(self, data: Data, only_simulate: bool = False) -> None:
@@ -353,10 +387,6 @@ class Model:
         torques_stack, contactForcesSum, tauMeasured, T
         (reference model.py:333-632)."""
         opt = self.opt
-        if int(opt.get("shardSamples", 0) or 0) > 1:
-            from .identification.identifier import not_ported
-
-            raise not_ported("shardSamples > 1 (sample sharding over devices, item 9)")
         self.data = data
         self._contract_cache = {}  # contractions are per-dataset
         self._resid_cache = {}  # residual stats are per-dataset
@@ -515,35 +545,33 @@ class Model:
         return Y
 
     def _stage_streaming(self, samples, idx, Q, V, A, BR, BV, BA) -> dict:
-        """Put the per-sample state on the device once per dataset; the
+        """Put the per-sample state on the device once per dataset, as the
+        pieces of `_sample_pieces`, each on its mesh device; the
         simulation pass, the Gram pass and every reporting contraction
-        read it from there. The base series are None
-        for a fixed base. Invalidated at the top of computeRegressors."""
+        read it from there. The base series are None for a fixed base.
+        Invalidated at the top of computeRegressors."""
         st = self._staged
         if st is not None and st["N"] == len(idx):
             return st
         vsig = helpers.get_friction_sign_velocities(samples, self.opt)[idx, : self.num_dofs]
-        st = dict(N=len(idx), chunk=int(self.opt.get("gramChunk", 4096)), vsig=self._to_dev(vsig))
-        for k, a in dict(Q=Q, V=V, A=A, BR=BR, BV=BV, BA=BA).items():
-            st[k] = None if a is None else self._to_dev(a)
+        host = dict(Q=Q, V=V, A=A, BR=BR, BV=BV, BA=BA, vsig=vsig)
+        parts = [dict(sl=sl, **{k: None if a is None else self._to_dev(a[sl], dev)
+                                for k, a in host.items()})
+                 for sl, dev in self._sample_pieces(len(idx))]
+        st = dict(N=len(idx), parts=parts)
         self._staged = st
         return st
 
-    @staticmethod
-    def _chunk_of(st, keys, sl):
-        return [None if st[k] is None else st[k][sl] for k in keys]
-
     def _identified_chunks(self, st):
-        """(slice, identified regressor chunk (n, rows, P)) over the staged
-        dataset. The Coulomb sign series is derived on the device from the
-        sign velocities (the tanh of helpers.get_friction_sign_series)."""
+        """(slice, identified regressor piece (n, rows, P) on the piece's
+        device) over the staged dataset, in sample order. The Coulomb sign
+        series is derived on the device from the sign velocities (the tanh
+        of helpers.get_friction_sign_series)."""
         thresh = float(self.opt.get("frictionSignThreshold", 0.02))
-        for s0 in range(0, st["N"], st["chunk"]):
-            sl = slice(s0, s0 + st["chunk"])
-            Q, V, A, BR, BV, BA, vsig = self._chunk_of(
-                st, ("Q", "V", "A", "BR", "BV", "BA", "vsig"), sl)
+        for part in st["parts"]:
+            Q, V, A, BR, BV, BA, vsig = (part[k] for k in ("Q", "V", "A", "BR", "BV", "BA", "vsig"))
             Y = self.engine.regressor_batch(Q, V, A, BR, BV, BA)
-            yield sl, self._identified_columns(Y, V, torch.tanh(vsig / thresh), vsig)
+            yield part["sl"], self._identified_columns(Y, V, torch.tanh(vsig / thresh), vsig)
 
     # ------------------------------------------------------------------
     # contact wrenches: J^T w on the device, chunk by chunk
@@ -561,21 +589,19 @@ class Model:
             lambda q, br: self.engine.frame_jacobian(link_index, q, br).transpose(1, 2), Q, BR)
 
     def _contact_chunks(self, fn, Q, BR, *rest) -> np.ndarray:
-        """fn over `gramChunk`-sample chunks of host arrays (Q, BR, *rest)
-        put on the device, concatenated back on the host in f64."""
-        chunk = int(self.opt.get("gramChunk", 4096))
+        """fn over the `_sample_pieces` of host arrays (Q, BR, *rest), each
+        put on its device, concatenated back on the host in f64."""
         outs = []
-        for s0 in range(0, len(Q), chunk):
-            sl = slice(s0, s0 + chunk)
-            args = [None if a is None else self._to_dev(a[sl]) for a in (Q, BR, *rest)]
-            outs.append(fn(*args))
+        for sl, dev in self._sample_pieces(len(Q)):
+            args = [None if a is None else self._to_dev(a[sl], dev) for a in (Q, BR, *rest)]
+            outs.append(fn(*args).to(self.device))
         return torch.cat(outs).double().cpu().numpy()
 
     def _scan_contract(self, staged, xs) -> np.ndarray:
         """(K, N, rows) torque contractions tau_hat = Y @ x_k over the
-        staged chunks."""
+        staged pieces."""
         xj = self._to_dev(np.stack(xs))
-        outs = [torch.einsum("nrp,kp->knr", Y, xj)
+        outs = [torch.einsum("nrp,kp->knr", Y, xj.to(Y.device)).to(self.device)
                 for _, Y in self._identified_chunks(staged)]
         return torch.cat(outs, dim=1).double().cpu().numpy()
 
@@ -591,14 +617,16 @@ class Model:
         cf2d = self.contactForcesSum.reshape(N, rows)
         tau = self._to_dev(tau2d)
         cf = self._to_dev(cf2d)
-        # per-output-channel Grams in ONE kernel launch per chunk: tau and
-        # the contact column appended to the regressor, so the channel's
-        # G = Y^T Y, g = Y^T tau and gcf = Y^T cf all come out of the
-        # (P+2, P+2) augmented Gram; summed over chunks in f64
+        # per-output-channel Grams in ONE kernel launch per piece (a chunk,
+        # or a shard of one): tau and the contact column appended to the
+        # regressor, so the channel's G = Y^T Y, g = Y^T tau and
+        # gcf = Y^T cf all come out of the (P+2, P+2) augmented Gram;
+        # summed over pieces in f64 on the model's device
         Gaug = torch.zeros((rows, P + 2, P + 2), dtype=torch.float64, device=self.device)
         for sl, Y in self._identified_chunks(st):
-            aug = cat_padded([Y, tau[sl, :, None], cf[sl, :, None]])
-            Gaug += gram_batched(aug).double()
+            d = Y.device
+            aug = cat_padded([Y, tau[sl, :, None].to(d), cf[sl, :, None].to(d)])
+            Gaug += gram_batched(aug).double().to(self.device)
 
         self.YStd = None
         self.YBase = None
@@ -676,13 +704,15 @@ class Model:
             rp, pp = torch.zeros((K, rows), **f64), torch.zeros((K, rows), **f64)
             tp, bn = torch.zeros(rows, **f64), torch.zeros(K, **f64)
             for sl, Y in self._identified_chunks(st):
-                pred = torch.einsum("nrp,kp->knr", Y, xj) + cf[sl][None]
-                r = taum[sl][None] - pred
+                d = Y.device
+                tm = taum[sl].to(d)
+                pred = torch.einsum("nrp,kp->knr", Y, xj.to(d)) + cf[sl].to(d)[None]
+                r = tm[None] - pred
                 r2 = r * r
-                rp += r2.sum(dim=1).double()
-                pp += (pred * pred).sum(dim=1).double()
-                tp += (taum[sl] ** 2).sum(dim=0).double()
-                bn += torch.sqrt(r2.sum(dim=2)).sum(dim=1).double()
+                rp += r2.sum(dim=1).double().to(self.device)
+                pp += (pred * pred).sum(dim=1).double().to(self.device)
+                tp += (tm ** 2).sum(dim=0).double().to(self.device)
+                bn += torch.sqrt(r2.sum(dim=2)).sum(dim=1).double().to(self.device)
             flat = torch.cat([rp.ravel(), pp.ravel(), tp, bn]).cpu().numpy()
             rp = flat[: K * rows].reshape(K, rows)
             pp = flat[K * rows : 2 * K * rows].reshape(K, rows)
@@ -782,7 +812,10 @@ class Model:
         """Structural Gram over `n_samples` random in-limit states, drawn
         from a torch.Generator seeded 0 on the model's device, in chunks
         of `gramChunk` samples; each chunk's Gram (n*rows rows x P) is one
-        B=1 launch of the Gram kernel, summed over chunks in f64."""
+        B=1 launch of the Gram kernel, summed over chunks in f64. With
+        `shardSamples` > 1 the chunk's states are the same draws, cut
+        into the shard slices of `parallel.mesh.shard_slices`: one launch
+        per shard on its mesh device, summed in f64 in shard order."""
         opt = self.opt
         nd = self.num_dofs
         dt = self._compute_dtype()
@@ -805,6 +838,7 @@ class Model:
         gen.manual_seed(0)
         chunk = int(opt.get("gramChunk", 4096))
         P = self.num_identified_params
+        mesh = self._sample_mesh()
         G = torch.zeros((1, P, P), dtype=torch.float64, device=self.device)
         for s0 in range(0, n_samples, chunk):
             c = min(chunk, n_samples - s0)
@@ -825,9 +859,12 @@ class Model:
                 if grav_only:
                     bv, ba = torch.zeros_like(bv), torch.zeros_like(ba)
                 base = (rpy_to_base_rot(0.1 * b[:, 12:]), bv, ba)
-            Y = self.engine.regressor_batch(q, dq, ddq, *base)  # (c, rows, 10L)
-            Y = self._identified_columns(Y, dq, torch.tanh(dq / sign_thresh), dq)
-            G += gram_batched(Y.reshape(c * self.N_OUT, 1, P)).double()
+            for sl, dev in zip(shard_slices(c, mesh.size), mesh.devices):
+                qs, dqs, ddqs, *bs = (a[sl].to(dev) for a in (q, dq, ddq, *base))
+                Y = self.engine.regressor_batch(qs, dqs, ddqs, *bs)  # (n, rows, 10L)
+                Y = self._identified_columns(Y, dqs, torch.tanh(dqs / sign_thresh), dqs)
+                n = sl.stop - sl.start
+                G += gram_batched(Y.reshape(n * self.N_OUT, 1, P)).double().to(self.device)
         return G[0].cpu().numpy()
 
     def computeRegressorLinDepsQR(self, regressor: np.ndarray | None = None) -> None:

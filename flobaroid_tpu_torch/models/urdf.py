@@ -52,6 +52,18 @@ def rpy_to_matrix(rpy) -> np.ndarray:
     )
 
 
+def matrix_to_rpy(R: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`rpy_to_matrix` (one solution, pitch in [-pi/2, pi/2])."""
+    p = math.atan2(-R[2, 0], math.hypot(R[0, 0], R[1, 0]))
+    if abs(abs(p) - math.pi / 2) < 1e-12:
+        r = 0.0
+        y = math.atan2(-R[0, 1], R[1, 1]) * (1.0 if p > 0 else -1.0)
+    else:
+        y = math.atan2(R[1, 0], R[0, 0])
+        r = math.atan2(R[2, 1], R[2, 2])
+    return np.array([r, p, y])
+
+
 def _floats(s: str | None, default=None) -> np.ndarray:
     if s is None:
         return np.asarray(default, dtype=float)

@@ -85,11 +85,43 @@ def test_identifiability_needs_the_projection(arm_dir):
 
 
 def test_shard_samples_raises_before_any_work(arm_dir):
-    """Sample sharding is not ported: computeRegressors says so, naming
-    ROADMAP, whatever the data."""
-    opt = load_config(None, overrides=dict(LAYOUTS["inertial"], shardSamples=2, verbose=0))
-    model = Model(dict(opt), arm_dir, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9.*ROADMAP"):
-        model.computeRegressors(None)
-    assert model.YStd is None and not hasattr(model, "data")
-    np.testing.assert_array_equal(model.xStd, np.array([]))
+    """Sample sharding runs (the name is kept from when it raised): with
+    `shardSamples: 2` the streamed Grams, the contractions and the
+    residual statistics of every layout's model equal the unsharded
+    model's, and each piece of the data lies on its shard's device."""
+    from flobaroid_tpu_torch.data import Data
+
+    rng = np.random.default_rng(3)
+    for layout in LAYOUTS:
+        models = []
+        for shards in (0, 2):
+            opt = load_config(None, overrides=dict(
+                LAYOUTS[layout], useStructuralRegressor=1, computeDtype="float64",
+                materializeRegressor=0, gramChunk=64, simulateTorques=1, shardSamples=shards,
+                verbose=0))
+            models.append(Model(dict(opt), arm_dir, device="cpu"))
+        m0, m2 = models
+        n, N = m0.num_dofs, 150
+        samples = dict(positions=rng.uniform(-1, 1, (N, n)), velocities=rng.normal(size=(N, n)),
+                       accelerations=rng.normal(size=(N, n)), torques=np.zeros((N, n)),
+                       times=np.arange(N) / 100.0, frequency=np.float64(100.0))
+        if m0.fb:
+            samples.update(base_rpy=rng.uniform(-0.1, 0.1, (N, 3)),
+                           base_velocity=rng.normal(size=(N, 6)),
+                           base_acceleration=rng.normal(size=(N, 6)))
+        for m in models:
+            data = Data(m.opt)
+            data.init_from_data({k: np.array(v) for k, v in samples.items()})
+            m.computeRegressors(data)
+        pieces = [p["sl"] for p in m2._staged["parts"]]
+        assert [(s.start, s.stop) for s in pieces] == [
+            (0, 32), (32, 64), (64, 96), (96, 128), (128, 139), (139, 150)], layout
+        scale = np.abs(m0.G_rows.numpy()).max()
+        assert np.abs(m2.G_rows.numpy() - m0.G_rows.numpy()).max() <= 1e-12 * scale, layout
+        np.testing.assert_allclose(m2.g_rows.numpy(), m0.g_rows.numpy(), rtol=1e-10, atol=1e-10)
+        x = m0.xStdModel[m0.identified_params] * 1.05
+        np.testing.assert_allclose(m2.contract_identified(x), m0.contract_identified(x),
+                                   rtol=1e-12, atol=1e-12)
+        (r2,), (r0,) = m2.residual_stats([x]), m0.residual_stats([x])
+        for k in ("rp", "pp", "tp", "bn"):
+            np.testing.assert_allclose(r2[k], r0[k], rtol=1e-10)

@@ -337,7 +337,9 @@ def test_port_fourier_run_saves_root_keys(work, root_fourier_file, tmp_path):
 # ----------------------------------------------------------------------
 def test_identifier_command_loads_neither_jax_nor_jax_package(work, measurements, tmp_path):
     """`python -m flobaroid_tpu_torch.cli.identifier --device cpu` in a
-    fresh process: the run's modules include no jax and no flobaroid_tpu."""
+    fresh process, then the sharded dry run on two CPU shards and every
+    module of tools/ and examples/: the run's modules include no jax and
+    no flobaroid_tpu."""
     argv = [*_common(work), "--measurements", measurements["port"], "--device", "cpu"]
     code = f"""
 import sys
@@ -345,6 +347,12 @@ sys.path.insert(0, {REPO!r})
 import runpy
 sys.argv = ["identifier"] + {argv!r}
 runpy.run_module("flobaroid_tpu_torch.cli.identifier", run_name="__main__")
+from flobaroid_tpu_torch.parallel.dryrun import dryrun_multichip
+dryrun_multichip(2, device="cpu")
+for name in ("csv2npz", "getMaxInertia", "createNoisyURDF", "scaleInertia", "paramErrorPlot"):
+    __import__("flobaroid_tpu_torch.tools." + name)
+for name in ("cad_quality_study", "sensor_placement_study", "walkman_full_flow"):
+    __import__("flobaroid_tpu_torch.examples." + name)
 print("jax" in sys.modules,
       any(m == "flobaroid_tpu" or m.startswith("flobaroid_tpu.") for m in sys.modules))
 """

@@ -190,6 +190,23 @@ def test_rotation_conventions_match_jax():
                   - np.asarray(jax_rpy_to_base_rot(jnp.asarray(rpy)))).max() < 1e-14
 
 
+@pytest.mark.parametrize("pitch", [0.3, np.pi / 2, -np.pi / 2], ids=["regular", "up", "down"])
+def test_urdf_matrix_to_rpy_matches_jax(pitch):
+    """models/urdf.py's rpy_to_matrix / matrix_to_rpy pair, also at the
+    gimbal lock (pitch +-pi/2, where roll is set to 0). At pitch -pi/2
+    the JAX function's result does not give R back (its yaw takes the
+    wrong sign there); the port keeps that behaviour."""
+    from flobaroid_tpu.models import urdf as jurdf
+    from flobaroid_tpu_torch.models import urdf as turdf
+
+    rpy = np.array([0.4, pitch, -1.1])
+    R = turdf.rpy_to_matrix(rpy)
+    assert np.array_equal(R, jurdf.rpy_to_matrix(rpy))
+    got, want = turdf.matrix_to_rpy(R), jurdf.matrix_to_rpy(R)
+    assert np.array_equal(got, want)
+    assert (np.abs(turdf.rpy_to_matrix(got) - R).max() < 1e-12) == (pitch > 0)
+
+
 def test_spatial_primitives_match_jax():
     rng = np.random.default_rng(5)
     v, m = rng.standard_normal((2, 8, 6))

@@ -129,9 +129,19 @@ def test_optimize_trajectory_runs_every_collision_mode(arm, mode):
 
 
 def test_candidate_sharding_raises(arm):
-    """Candidate sharding is not ported: it says so, naming ROADMAP,
-    before any work is done, in every collision mode."""
+    """Candidate sharding runs (the name is kept from when it raised):
+    with the exact-mesh verification of the convex tier,
+    `optimize_trajectory` with the CEM batch and the AL restarts split
+    over two shards ends where the unsharded run ends, with the same
+    verdicts."""
     urdf, opt, model = arm
-    for mode in ("capsule", "convex", "full"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            topt.optimize_trajectory(model, dict(opt, collisionMode=mode, shardCandidates=2))
+    runs = [topt.optimize_trajectory(
+        model, dict(opt, collisionMode="convex", globalOptIterations=1, localOptStages=1,
+                    shardCandidates=shards),
+        rng=np.random.default_rng(4)) for shards in (0, 2)]
+    (x0, _, _, info0), (x2, _, obj2, info2) = runs
+    assert obj2._candidate_mesh().size == 2
+    np.testing.assert_allclose(x2, x0, rtol=1e-10, atol=1e-12)
+    assert info2["f"] == pytest.approx(info0["f"], rel=1e-10)
+    assert (info2["feasible"], info2["mesh_collision_ok"]) == (
+        info0["feasible"], info0["mesh_collision_ok"])

@@ -186,10 +186,9 @@ def test_floating_structural_rank_and_column_space(tmp_path, dtype):
 
 def test_model_requires_a_device_and_fixed_base(arm_copy, monkeypatch):
     """The default device is the card: without one it raises, with no CPU
-    fallback. A floating base and the friction refit are ported; what
-    stays unported on a model's path (candidate sharding of the trajectory
-    optimizer and sample sharding of the identify) raises, naming
-    ROADMAP."""
+    fallback. A floating base, the friction refit and sharding are ported:
+    candidate sharding of the trajectory objective and sample sharding of
+    the identify give what the unsharded runs give."""
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -201,14 +200,30 @@ def test_model_requires_a_device_and_fixed_base(arm_copy, monkeypatch):
     idf.data.init_from_data(_samples())
     idf.estimateParameters()
     assert set(idf.postid_friction) == {"Fc", "Fv", "off"}
-    from flobaroid_tpu_torch.excitation.optimizer import optimize_trajectory
+    from flobaroid_tpu_torch.excitation.objective import TrajectoryObjective
+    from flobaroid_tpu_torch.excitation.optimizer import build_bounds
+    from flobaroid_tpu_torch.excitation.trajectory import FourierSpec
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimize_trajectory(idf.model, {**idf.opt, "shardCandidates": 2})
-    sharded = Identification(_opt("friction", "float64", shardSamples=2), arm_copy, device="cpu")
+    m = idf.model
+    spec = FourierSpec(nf=(1,) * m.num_dofs, limits=tuple(
+        (m.limits[j]["lower"], m.limits[j]["upper"]) for j in m.jointNames))
+    cfg = {**idf.opt, "excitationFrequency": 20.0, "trajectoryPulseMin": 1.0}
+    obj = TrajectoryObjective(m, cfg, spec, dtype=torch.float64)
+    lo, hi = build_bounds(spec, cfg)
+    X = lo + (hi - lo) * np.random.default_rng(2).random((5, len(lo)))
+    obj.calibrate_scale(X[0])
+    unsharded = obj.evaluate_batch(X)
+    cfg["shardCandidates"] = 2
+    for a, b in zip(obj.evaluate_batch(X), unsharded):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
+    sharded = Identification(_opt("friction", "float64", postIdentifyFriction=1, shardSamples=2),
+                             arm_copy, device="cpu")
     sharded.data.init_from_data(_samples())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharded.estimateParameters()
+    sharded.estimateParameters()
+    assert np.linalg.norm(sharded.model.xBase - m.xBase) <= 1e-10 * np.linalg.norm(m.xBase)
+    for k in idf.postid_friction:
+        np.testing.assert_allclose(sharded.postid_friction[k], idf.postid_friction[k],
+                                   rtol=1e-8, atol=1e-10)
 
 
 def test_convert_carries_the_base_and_refuses_a_mismatch(arm_copy):

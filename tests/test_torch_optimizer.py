@@ -7,9 +7,10 @@ Tolerances. Ten Adam steps (`al_refine`, `adam_refine`), one CEM
 generation and one `local_refine_batch` stage from the same rng: 1e-6
 absolute in x (Adam divides by sqrt(v) + 1e-8, which magnifies rounding
 on coordinates with tiny gradients; measured ~1e-9 after ten steps).
-Checkpoints, the interrupt guard, the options that raise, one whole
-small optimization and the process that loads no JAX are the port's
-alone.
+Candidate sharding (`shardCandidates`) is held against the port's
+unsharded run and the JAX package's unsharded CEM generation and AL
+stage. Checkpoints, the interrupt guard, one whole small optimization
+and the process that loads no JAX are the port's alone.
 """
 
 import os
@@ -51,14 +52,18 @@ def test_ten_adam_steps_match_jax(arm, which):
 
 
 @pytest.mark.timeout(180)
-def test_one_cem_generation_matches_jax(arm):
-    """One generation of 8 candidates from the same rng: the same best
-    candidate and score; the helpers draw the same numbers."""
+def test_one_cem_generation_matches_jax(arm, monkeypatch):
+    """One generation of 8 candidates from the same rng, unsharded and
+    over two candidate shards: the same best candidate and score as the
+    JAX package's unsharded generation; the helpers draw the same numbers."""
     jx, jf, jfeas = jopt.global_search(arm.jobj, arm.opt, rng=np.random.default_rng(3),
                                        seeds=[arm.X[1]])
-    tx, tf, tfeas = topt.global_search(arm.tobj, arm.opt, rng=np.random.default_rng(3),
-                                       seeds=[arm.X[1]])
-    assert np.abs(tx - jx).max() <= 1e-6 and abs(tf - jf) <= 1e-6 * abs(jf) and tfeas == jfeas
+    for shards in (0, 2):
+        monkeypatch.setitem(arm.tobj.config, "shardCandidates", shards)
+        tx, tf, tfeas = topt.global_search(arm.tobj, arm.tobj.config,
+                                           rng=np.random.default_rng(3), seeds=[arm.X[1]])
+        assert np.abs(tx - jx).max() <= 1e-6 and abs(tf - jf) <= 1e-6 * abs(jf)
+        assert tfeas == jfeas
     for a, b in zip(topt.build_bounds(arm.tobj.spec, arm.opt), jopt.build_bounds(arm.jobj.spec, arm.opt)):
         assert np.array_equal(a, b)
     assert np.array_equal(topt.initial_candidate(arm.tobj.spec, arm.opt, np.random.default_rng(9)),
@@ -70,13 +75,18 @@ def test_one_cem_generation_matches_jax(arm):
 
 
 @pytest.mark.timeout(240)
-def test_one_local_refine_batch_stage_matches_jax(arm):
+def test_one_local_refine_batch_stage_matches_jax(arm, monkeypatch):
     """Two restarts (the amplitude ladder and its jitter from the same
-    rng), one augmented-Lagrangian stage of 40 Adam steps."""
+    rng), one augmented-Lagrangian stage of 40 Adam steps, unsharded and
+    with the restarts over two candidate shards, against the JAX
+    package's unsharded stage."""
     jx, jf, jfeas = jopt.local_refine_batch(arm.jobj, arm.opt, arm.X[1], rng=np.random.default_rng(4))
-    tx, tf, tfeas = topt.local_refine_batch(arm.tobj, arm.opt, arm.X[1], rng=np.random.default_rng(4))
-    assert tfeas == jfeas
-    assert np.abs(tx - jx).max() <= 1e-6 and abs(tf - jf) <= 1e-6 * abs(jf)
+    for shards in (0, 2):
+        monkeypatch.setitem(arm.tobj.config, "shardCandidates", shards)
+        tx, tf, tfeas = topt.local_refine_batch(arm.tobj, arm.tobj.config, arm.X[1],
+                                                rng=np.random.default_rng(4))
+        assert tfeas == jfeas
+        assert np.abs(tx - jx).max() <= 1e-6 and abs(tf - jf) <= 1e-6 * abs(jf)
 
 
 # ----------------------------------------------------------------------
@@ -208,19 +218,31 @@ def test_interrupt_guard_keeps_to_sigint():
     assert signal.getsignal(signal.SIGALRM) is before_alrm
 
 
-def test_unported_options_raise(arm):
-    """Candidate sharding is not ported: the optimizer and the objective
-    say so, naming ROADMAP, before any work is done, whatever the
-    collision mode (the exact-mesh tier is ported)."""
-    model = arm.tobj.model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.optimize_trajectory(model, dict(arm.opt, collisionMode="convex", shardCandidates=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.optimize_trajectory(model, dict(arm.opt, shardCandidates=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrajectoryObjective(model, dict(arm.opt, shardCandidates=2), arm.tobj.spec)
+def test_unported_options_raise(arm, monkeypatch):
+    """Candidate sharding is ported (the name is kept from when it raised):
+    with `shardCandidates: 2`, `evaluate_batch` (4 candidates, and 3
+    padded to 4) and `al_refine_batch` equal the unsharded port (the CEM
+    generation and the local stage, which shard through them, are held
+    against the JAX package above). A missing calibration still raises."""
+    tobj = arm.tobj
+
+    def batches():
+        return [tobj.evaluate_batch(arm.X[:4]), tobj.evaluate_batch(arm.X[:3]),
+                tobj.al_refine_batch(arm.X[:3], arm.lo, arm.hi, arm.LAM[:3], arm.RHO[:3],
+                                     n_steps=5)]
+
+    unsharded = batches()
+    monkeypatch.setitem(tobj.config, "shardCandidates", 2)
+    sharded = batches()
+    assert tobj._candidate_mesh().devices == (torch.device("cpu"),) * 2
+    for got, want in zip(sharded[:2], unsharded[:2]):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
+        assert np.array_equal(got[2], want[2])
+    np.testing.assert_allclose(sharded[2], unsharded[2], rtol=1e-6, atol=1e-8)
     with pytest.raises(RuntimeError, match="calibrate_scale"):
-        TrajectoryObjective(model, arm.opt, arm.tobj.spec).evaluate(arm.x0)
+        TrajectoryObjective(tobj.model, arm.opt, tobj.spec).evaluate(arm.x0)
 
 
 @pytest.mark.timeout(240)
@@ -254,8 +276,9 @@ def test_optimize_trajectory_improves(tmp_path):
 
 @pytest.mark.timeout(180)
 def test_port_loads_no_jax_after_optimize_and_simulate(tmp_path):
-    """A CPU optimize and a CPU simulate in a fresh process load no jax,
-    no optax and no flobaroid_tpu module."""
+    """A CPU optimize and a CPU simulate in a fresh process, with every
+    module of parallel/, tools/ and examples/ imported, load no jax, no
+    optax and no flobaroid_tpu module."""
     urdf = tmp_path / "arm.urdf"
     shutil.copy(ARM_URDF, urdf)
     code = f"""
@@ -267,6 +290,13 @@ from flobaroid_tpu_torch.excitation.trajectory import fourier_traj
 from flobaroid_tpu_torch.model import Model
 from flobaroid_tpu_torch.simulation.simulator import MEASUREMENT_KEYS, simulate_measurements
 from flobaroid_tpu_torch.utils.config import load_config
+import flobaroid_tpu_torch.parallel.dryrun, flobaroid_tpu_torch.parallel.mesh
+import flobaroid_tpu_torch.tools.csv2npz, flobaroid_tpu_torch.tools.getMaxInertia
+import flobaroid_tpu_torch.tools.createNoisyURDF, flobaroid_tpu_torch.tools.scaleInertia
+import flobaroid_tpu_torch.tools.paramErrorPlot
+import flobaroid_tpu_torch.examples.cad_quality_study
+import flobaroid_tpu_torch.examples.sensor_placement_study
+import flobaroid_tpu_torch.examples.walkman_full_flow
 import torch
 opt = load_config(None, overrides=dict(floatingBase=0, useStructuralRegressor=1, randomSamples=300,
     excitationFrequency=20.0, trajectoryPulseMin=1.0, trajectoryPulseMax=2.0, trajectoryDefaultNf=2,

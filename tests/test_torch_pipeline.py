@@ -266,19 +266,21 @@ def test_unported_branches_raise(arm_copy, monkeypatch):
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Identification(jax_config.load_config(None, overrides=BENCH), arm_copy)
-    # what still raises: candidate and sample sharding
-    from flobaroid_tpu_torch.excitation.optimizer import optimize_trajectory
-    from flobaroid_tpu_torch.model import Model
-
-    opt = jax_config.load_config(None, overrides={**BENCH, "randomSamples": 600})
-    model = Model(opt, arm_copy, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimize_trajectory(model, {**opt, "shardCandidates": 2})
-    sharded = Identification(jax_config.load_config(None, overrides={**BENCH, "shardSamples": 2}),
-                             arm_copy, device="cpu")
-    sharded.data.init_from_data(build_samples(arm_copy, n=400))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharded.estimateParameters()
+    # no branch raises any more: sample sharding (bench's options with
+    # shardSamples 2) identifies what the unsharded run identifies
+    runs = {}
+    for shards in (0, 2):
+        idf = Identification(jax_config.load_config(None, overrides={
+            **BENCH, "randomSamples": 600, "computeDtype": "float64", "gramChunk": 128,
+            "shardSamples": shards}), arm_copy, device="cpu")
+        idf.data.init_from_data(build_samples(arm_copy, n=400))
+        idf.estimateParameters()
+        runs[shards] = idf
+    assert len(runs[2].model._staged["parts"]) == 8
+    assert np.linalg.norm(runs[2].model.xBase - runs[0].model.xBase) <= 1e-10 * np.linalg.norm(
+        runs[0].model.xBase)
+    assert abs(runs[2].res_error - runs[0].res_error) <= 1e-8
+    assert runs[2].sdp.last_status == runs[0].sdp.last_status
     # essential parameters no longer do (value parity: the tests below)
     idf = Identification(jax_config.load_config(None, overrides={**BENCH, "useEssentialParams": 1}),
                          arm_copy, device="cpu")
@@ -362,8 +364,8 @@ def test_friction_refit_matches_jax(arm_copy, variant):
     assert abs(t.res_error - j.res_error) <= 1e-6 * j.res_error
 
 
-@pytest.mark.parametrize("fn", ["param_stddev", "wls_weights", "std_essential",
-                                "std_essential_gram"])
+@pytest.mark.parametrize("fn", ["ols", "ols_contacts", "param_stddev", "wls_weights",
+                                "std_essential", "std_essential_gram"])
 def test_least_squares_primitives_match_jax(fn):
     """The port's copies of the least-squares primitives on random inputs
     (numpy on both sides: equal to rounding)."""
@@ -376,12 +378,15 @@ def test_least_squares_primitives_match_jax(fn):
     tau = Y @ x + 0.01 * rng.standard_normal(60)
     ess = np.where(np.arange(8) % 3 == 0, 0.0, rng.standard_normal(8))
     args = dict(
+        ols=(Y, tau),
+        ols_contacts=(Y, tau, 0.1 * rng.standard_normal(60)),
         param_stddev=(Y, x, tau.reshape(12, 5), (Y @ x).reshape(12, 5), 8),
         wls_weights=(np.abs(rng.standard_normal(5)) + 0.1, 12),
         std_essential=(Y, tau, ess, 5, x),
         std_essential_gram=(Y.T @ Y, Y.T @ tau, ess, 5, x),
     )[fn]
-    np.testing.assert_allclose(getattr(tls, fn)(*args), getattr(jls, fn)(*args), rtol=1e-12)
+    name = fn.replace("_contacts", "")
+    np.testing.assert_allclose(getattr(tls, name)(*args), getattr(jls, name)(*args), rtol=1e-12)
     if fn == "std_essential_gram":  # the Gram form equals the regressor form
         np.testing.assert_allclose(tls.std_essential_gram(*args),
                                    tls.std_essential(Y, tau, ess, 5, x), rtol=1e-8)

@@ -277,7 +277,7 @@ def test_failed_cholesky_reads_1e4_and_spares_the_batch(arm):
     ref_v, ref_g = tobj.al_value_and_grad(arm.X, arm.LAM, arm.RHO)
     nb = tobj.Pb.shape[1]
     bad = -1e9 * np.eye(nb)
-    tobj._yty = None
+    assert tobj.yty_prior is None
     orig = tobj._raw
 
     def raw_with_bad_candidate(X, shift):

@@ -3,6 +3,7 @@ fourth-leg budget, seed 0) that the smoke test itself does not make.
 
     python tools/trajectory_leg_probe.py run <cpu|cuda> [float32|float64] [threads] [seeds] [jitters]
     python tools/trajectory_leg_probe.py profile
+    python tools/trajectory_leg_probe.py shard <cpu|cuda>
 
 `run` drives the whole leg on one device with the objective in one dtype
 (on a CPU with the given thread count), once per `trajectoryOptSeed` of
@@ -16,6 +17,14 @@ optimization under rounding alone is read from several such runs.
 values and gradients of 8 first-generation candidates against the CPU in
 f32 and f64, times one AL step and its forward pass, and prints a
 torch.profiler table of one step (kernel launches, device time).
+`shard` runs chip_smoke.py's `sharded_candidates` augmented-Lagrangian
+stage (8 restarts x 40 Adam steps of the first generation) in f32 and
+f64, from candidates 0-7 (candidate 0 is the CEM mean, on the kink at
+q0 = 0) and from candidates 1-8, as one batch of 8 (twice), over
+`shardCandidates: 2`, and as two separate unsharded batches of 4, and
+prints the largest difference in f and g (relative to their largest
+magnitude) of each pair of runs: whether two runs differ because they
+were sharded or because their batches differ in size.
 """
 
 import json
@@ -33,7 +42,8 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 from flobaroid_tpu_torch.collision import CollisionModel  # noqa: E402
 from flobaroid_tpu_torch.excitation.objective import TrajectoryObjective  # noqa: E402
-from flobaroid_tpu_torch.excitation.optimizer import initial_candidate, optimize_trajectory  # noqa: E402
+from flobaroid_tpu_torch.excitation.optimizer import (  # noqa: E402
+    build_bounds, initial_candidate, optimize_trajectory)
 from flobaroid_tpu_torch.excitation.trajectory import FourierSpec  # noqa: E402
 from flobaroid_tpu_torch.model import Model  # noqa: E402
 
@@ -155,6 +165,55 @@ def profile() -> None:
                                     max_name_column_width=60))
 
 
+def shard(device: str) -> None:
+    if device == "cuda":
+        build_kernel()
+    opt, cfg = cs.trajectory_leg_config()
+    urdf = cs.copy_urdf(cs.ARM_URDF, tempfile.mkdtemp(prefix="flobaroid_probe_"), with_cache=False)
+    m = Model(opt, urdf, device=device)
+    lims = m.limits
+    spec = FourierSpec(nf=(int(opt["trajectoryDefaultNf"]),) * m.num_dofs, limits=tuple(
+        (float(lims[j]["lower"]), float(lims[j]["upper"])) for j in m.jointNames))
+    cm = CollisionModel(m.tree, m.engine, cfg)
+    X = cs.first_generation(spec, cfg)
+    x0 = initial_candidate(spec, cfg, np.random.default_rng(0))
+    lo, hi = build_bounds(spec, cfg)
+    for dt in (torch.float32, torch.float64):
+        obj = TrajectoryObjective(
+            m, dict(cfg), spec, dtype=dt, n_extra_constraints=cm.num_pairs,
+            extra_constraints_fn=cm.trajectory_constraint_fn(
+                step=int(cfg.get("collisionCheckStep", 3)), n_transition=10))
+        obj.calibrate_scale(x0)
+        for first in (0, 1):
+            Xs = X[first:first + 8]
+            LAM, RHO = np.zeros((8, obj.evaluate(x0)[1].shape[0])), np.full(8, 10.0)
+
+            def stage(rows, shards):
+                obj.config["shardCandidates"] = shards
+                out = obj.al_refine_batch(Xs[rows], lo, hi, LAM[rows], RHO[rows],
+                                          lr=0.01, n_steps=40)
+                obj.config["shardCandidates"] = 0
+                return out
+
+            runs = dict(batch8=stage(slice(0, 8), 0), batch8_again=stage(slice(0, 8), 0),
+                        sharded2x4=stage(slice(0, 8), 2),
+                        split2x4=np.concatenate([stage(slice(0, 4), 0), stage(slice(4, 8), 0)]))
+            ev = {k: obj.evaluate_batch(v) for k, v in runs.items()}
+
+            def diff(a, b):
+                (fa, ga, _), (fb, gb, _) = ev[a], ev[b]
+                return dict(f=float(np.abs(fa - fb).max() / np.abs(fb).max()),
+                            g=float(np.abs(ga - gb).max() / np.abs(gb).max()))
+
+            print(json.dumps(dict(
+                device=device, dtype=str(dt), candidates=f"{first}-{first + 7}",
+                card=cs.gpu_name_power() if device == "cuda" else None,
+                batch8_again_vs_batch8=diff("batch8_again", "batch8"),
+                sharded2x4_vs_batch8=diff("sharded2x4", "batch8"),
+                split2x4_vs_batch8=diff("split2x4", "batch8"),
+                sharded2x4_vs_split2x4=diff("sharded2x4", "split2x4"))), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["run"]:
         run(sys.argv[2], getattr(torch, sys.argv[3] if len(sys.argv) > 3 else "float32"),
@@ -163,5 +222,7 @@ if __name__ == "__main__":
             int(sys.argv[6]) if len(sys.argv) > 6 else 1)
     elif sys.argv[1:2] == ["profile"]:
         profile()
+    elif sys.argv[1:2] == ["shard"] and len(sys.argv) > 2:
+        shard(sys.argv[2])
     else:
         sys.exit(__doc__)

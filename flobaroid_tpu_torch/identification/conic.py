@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import timing
 
 
 @dataclass
@@ -329,13 +330,17 @@ def _newton_run(step, x, tol, max_iter, stall_ratio):
     """One centering stage: Newton steps `step(x) -> (x, dec, ok, step)`
     until the decrement converges, the line search fails (step < 1e-8),
     or the decrement stalls (ratio >= stall_ratio after the damped
-    phase). One host read per step. Returns (x, iterations, dec, ok)."""
+    phase). One host read per step; each step is the span
+    `sdp/newton_step`, counted in `sdp_newton_steps`. Returns (x,
+    iterations, dec, ok)."""
     it, dec, prev_dec, ok, size = 0, np.inf, np.inf, True, 1.0
     while (it < max_iter and ok and dec / 2.0 >= tol and size >= 1e-8
            and (it < 6 or dec <= stall_ratio * prev_dec)):
-        x, dec_n, ok_n, size_n = step(x)
-        dec_f, ok_f, size_f = torch.stack(
-            [dec_n, ok_n.to(_F64), size_n.to(_F64)]).tolist()
+        with timing.span("sdp/newton_step"):
+            timing.count("sdp_newton_steps")
+            x, dec_n, ok_n, size_n = step(x)
+            dec_f, ok_f, size_f = timing.host_read(torch.stack(
+                [dec_n, ok_n.to(_F64), size_n.to(_F64)])).tolist()
         prev_dec, dec, ok, size = dec, dec_f, bool(ok_f), size_f
         it += 1
     return x, it, dec, ok
@@ -527,6 +532,7 @@ class QuadBarrierSolver:
                 device=self.device)
         return self._p1
 
+    @timing.traced("sdp/phase1")
     def phase1(self, x0, margin: float = 1e-8):
         """Strictly feasible point near x0 (cached lifted solver)."""
         x0 = np.asarray(x0, float)
@@ -679,6 +685,7 @@ def _lift_groups(groups):
     return lifted
 
 
+@timing.traced("sdp/phase1")
 def phase1(prob: BarrierProblem, x0: np.ndarray, margin: float = 1e-8, verbose=False,
            _groups=None, _core: _BarrierCore | None = None, *, device):
     """Find a strictly feasible point by minimizing the max violation s:

@@ -19,7 +19,7 @@ import numpy as np
 from ..data import Data
 from ..model import Model
 from ..models.urdf import load_urdf
-from ..utils import helpers
+from ..utils import helpers, timing
 from . import least_squares as ls
 
 
@@ -196,6 +196,7 @@ class Identification:
             return np.asarray(m.xStd, dtype=float)
         raise ValueError(f"unknown estimateWith: {estimateWith}")
 
+    @timing.traced("reporting/torques")
     def estimateRegressorTorques(self, estimateWith: str | None = None) -> None:
         """tau_hat = Y x (+ contacts + separate friction); reference
         identifier.py:127-240."""
@@ -698,14 +699,13 @@ class Identification:
     # ------------------------------------------------------------------
     def estimateParameters(self, reuse_regressors: bool = False) -> None:
         """Full estimation flow (reference identifier.py:857-977).
-        Per-stage wall-clock lands in self.stage_times (regressor /
-        estimation / sdp / reporting) for observability and the bench's
-        per-stage breakdown. `reuse_regressors` skips the regressor pass
-        when the model still holds this Data's regressors or Grams from
-        an earlier pass (a sweep over estimation options on one
-        recording, as the CAD study's modes)."""
-        import time as _time
-
+        Per-stage host seconds land in self.stage_times (regressor_gram /
+        ols_wls / essential / sdp / std_recovery / reporting); while a
+        profiler records, the pass is the root span `identify` and each
+        stage its span `identify/<stage>`. `reuse_regressors` skips the
+        regressor pass when the model still holds this Data's regressors
+        or Grams from an earlier pass (a sweep over estimation options on
+        one recording, as the CAD study's modes)."""
         opt = self.opt
         m = self.model
         if self.data.num_used_samples <= m.num_identified_params * 2 and not opt.get(
@@ -717,66 +717,74 @@ class Identification:
             )
 
         self.stage_times: dict[str, float] = {}
-        _t = _time.perf_counter()
+        stage = timing.Stages(self.stage_times, "identify")
+        with timing.span("identify", N=self.data.num_used_samples):
+            with stage("regressor_gram"):
+                if not (reuse_regressors and getattr(m, "data", None) is self.data
+                        and m.tau is not None):
+                    m.computeRegressors(self.data)
 
-        def _mark(name):
-            nonlocal _t
-            now = _time.perf_counter()
-            self.stage_times[name] = self.stage_times.get(name, 0.0) + now - _t
-            _t = now
-
-        if not (reuse_regressors and getattr(m, "data", None) is self.data
-                and m.tau is not None):
-            m.computeRegressors(self.data)
-        _mark("regressor_gram")
-
-        if opt["useEssentialParams"]:
-            self.identifyBaseParameters()
-            _mark("ols_wls")
-            self.findBaseEssentialParameters()
-            if opt["useAPriori"]:
-                self.getBaseParamsFromParamError()
-            self.findStdFromBaseEssParameters()
-            self.identifyStandardEssentialParameters()
-            _mark("essential")
-        else:
-            if opt["floatingBase"] and opt.get("useBaseWrenchForBaseParams", 0):
-                self.identifyBaseParameters(*self._extractBaseWrenchRows())
-            else:
-                self.identifyBaseParameters()
-            _mark("ols_wls")
-
-            if opt["constrainToConsistent"] and self.sdp is not None:
-                if opt["useAPriori"]:
-                    self.getBaseParamsFromParamError()
-                self.sdp.initSDP_LMIs(self)
-                if opt["identifyClosestToCAD"]:
-                    self.sdp.identifyFeasibleStandardParameters(self)
-                    if not np.allclose(m.xStd, m.xStdModel[m.identified_params]):
-                        m.xBase = (
-                            m.Binv @ m.xStd
-                            if opt["useBasisProjection"]
-                            else m.K @ m.xStd
-                        )
-                        self.sdp.findFeasibleStdFromFeasibleBase(self, m.xBase)
-                else:
-                    if opt["estimateWith"] == "std_direct":
-                        self.sdp.identifyFeasibleStandardParametersDirect(self)
-                    else:
-                        self.sdp.identifyFeasibleStandardParameters(self)
-                    m.xBase = (
-                        m.Binv @ m.xStd if opt["useBasisProjection"] else m.K @ m.xStd
-                    )
-                _mark("sdp")
-            else:
-                if opt["estimateWith"] == "std_direct":
-                    self.identifyStandardParametersDirect()
-                else:
-                    self.findStdFromBaseParameters()
+            if opt["useEssentialParams"]:
+                with stage("ols_wls"):
+                    self.identifyBaseParameters()
+                with stage("essential"):
+                    self.findBaseEssentialParameters()
                     if opt["useAPriori"]:
                         self.getBaseParamsFromParamError()
-                _mark("std_recovery")
+                    self.findStdFromBaseEssParameters()
+                    self.identifyStandardEssentialParameters()
+            else:
+                with stage("ols_wls"):
+                    if opt["floatingBase"] and opt.get("useBaseWrenchForBaseParams", 0):
+                        self.identifyBaseParameters(*self._extractBaseWrenchRows())
+                    else:
+                        self.identifyBaseParameters()
+                if opt["constrainToConsistent"] and self.sdp is not None:
+                    with stage("sdp"):
+                        self._identifyConsistentParameters()
+                else:
+                    with stage("std_recovery"):
+                        if opt["estimateWith"] == "std_direct":
+                            self.identifyStandardParametersDirect()
+                        else:
+                            self.findStdFromBaseParameters()
+                            if opt["useAPriori"]:
+                                self.getBaseParamsFromParamError()
 
+            with stage("reporting"):
+                self._report()
+
+    def _identifyConsistentParameters(self) -> None:
+        """The SDP stage: physically consistent standard parameters."""
+        opt = self.opt
+        m = self.model
+        if opt["useAPriori"]:
+            self.getBaseParamsFromParamError()
+        self.sdp.initSDP_LMIs(self)
+        if opt["identifyClosestToCAD"]:
+            self.sdp.identifyFeasibleStandardParameters(self)
+            if not np.allclose(m.xStd, m.xStdModel[m.identified_params]):
+                m.xBase = (
+                    m.Binv @ m.xStd
+                    if opt["useBasisProjection"]
+                    else m.K @ m.xStd
+                )
+                self.sdp.findFeasibleStdFromFeasibleBase(self, m.xBase)
+        else:
+            if opt["estimateWith"] == "std_direct":
+                self.sdp.identifyFeasibleStandardParametersDirect(self)
+            else:
+                self.sdp.identifyFeasibleStandardParameters(self)
+            m.xBase = (
+                m.Binv @ m.xStd if opt["useBasisProjection"] else m.K @ m.xStd
+            )
+
+    def _report(self) -> None:
+        """The friction refit and the reporting pass: the estimated
+        torques with the a-priori and the identified parameters, and
+        res_error."""
+        opt = self.opt
+        m = self.model
         if opt.get("postIdentifyFriction", 0):
             if opt["floatingBase"] or opt.get("identifyFrictionSimultaneously", 0):
                 self._postIdentifyFriction()
@@ -823,7 +831,6 @@ class Identification:
             self.res_error = helpers.relative_error_pct(
                 m.tauMeasured, self.tauEstimated
             )
-        _mark("reporting")
 
     def estimateValidationTorques(self) -> None:
         """Predict held-out measurements with the identified params

@@ -44,6 +44,7 @@ import scipy.linalg as sla
 import torch
 
 from ..models.geometry import link_bounding_box
+from ..utils import timing
 from ..utils.helpers import pseudo_inertia
 from . import conic
 
@@ -552,9 +553,12 @@ class SDP:
         return np.asarray(weights), np.stack(Q0s), np.stack(Fs), np.asarray(idxs)
 
     # ------------------------------------------------------------------
-    def identifyFeasibleStandardParameters(self, idf) -> None:
-        """Feasible std params minimizing the (projected) torque residual
-        + CAD regularization (reference sdp.py:450-624)."""
+    def _residual_rows(self, idf):
+        """(C_free, d_eff, geo_terms): the residual rows R1 K over the free
+        parameters (R1 from the base regressor's QR, or streamed, from the
+        Cholesky of the base Gram) with their targets, plus the CAD
+        regularization's rows, or its divergence terms in the geometric
+        mode (geo_terms, else None)."""
         opt = idf.opt
         m = idf.model
         K = m.Binv if opt["useBasisProjection"] else m.K
@@ -654,6 +658,15 @@ class SDP:
         # fold the fixed (pinned) contribution: C (scatter x + fixed) - d
         C_free = C @ self._scatter
         d_eff = d - C @ self._fixed_vec
+        return C_free, d_eff, geo_terms
+
+    def identifyFeasibleStandardParameters(self, idf) -> None:
+        """Feasible std params minimizing the (projected) torque residual
+        + CAD regularization (reference sdp.py:450-624)."""
+        opt = idf.opt
+        m = idf.model
+        with timing.span("sdp/setup"):
+            C_free, d_eff, geo_terms = self._residual_rows(idf)
 
         if opt.get("checkAPrioriFeasibility"):
             ok = self.checkFeasibility(m.xStdModel)
@@ -716,37 +729,39 @@ class SDP:
         objective from the device-accumulated Gram of the std regressor."""
         opt = idf.opt
         m = idf.model
-        if m.YStd is None:
-            # streaming: the same quadratic from the accumulated Grams
-            # (Y^T(torques - cf) = g_tau - g_cf when no a-priori offset
-            # is folded into tau)
-            if opt["useAPriori"]:
-                raise ValueError(
-                    "materializeRegressor=0 + estimateWith=std_direct + "
-                    "constrainToConsistent needs useAPriori=0 (the Grams "
-                    "accumulate Y^T(tau - tau_apriori))"
-                )
-            G = np.delete(np.delete(m.G_std, self.delete_cols, 0),
-                          self.delete_cols, 1)
-            g = np.delete(m.g_tau - m.g_cf, self.delete_cols)
-            tau_sq = float(m.tau_sq - 2.0 * m.tau_cf + m.cf_sq)
-        else:
-            Y = np.delete(m.YStd, self.delete_cols, axis=1)
-            tau = m.torques_stack - m.contactForcesSum
-            G = Y.T @ Y
-            g = Y.T @ tau
-            tau_sq = float(tau @ tau)
-        base_error = float(getattr(idf, "base_error", 1.0) or 1.0)
-        p_nid = sorted(set(m.non_id).difference(self.delete_cols).intersection(m.identified_params))
-        if opt["useRegressorRegularization"] and p_nid:
-            w = base_error / len(p_nid) * 1.5
-            for p in p_nid:
-                i = self.pos_in_idable[p]
-                G[i, i] += w * w
-                g[i] += w * w * m.xStdModel[p]
-        S = self._scatter
-        G_free = S.T @ G @ S
-        g_free = S.T @ (g - G @ self._fixed_vec)
+        with timing.span("sdp/setup"):
+            if m.YStd is None:
+                # streaming: the same quadratic from the accumulated Grams
+                # (Y^T(torques - cf) = g_tau - g_cf when no a-priori offset
+                # is folded into tau)
+                if opt["useAPriori"]:
+                    raise ValueError(
+                        "materializeRegressor=0 + estimateWith=std_direct + "
+                        "constrainToConsistent needs useAPriori=0 (the Grams "
+                        "accumulate Y^T(tau - tau_apriori))"
+                    )
+                G = np.delete(np.delete(m.G_std, self.delete_cols, 0),
+                              self.delete_cols, 1)
+                g = np.delete(m.g_tau - m.g_cf, self.delete_cols)
+                tau_sq = float(m.tau_sq - 2.0 * m.tau_cf + m.cf_sq)
+            else:
+                Y = np.delete(m.YStd, self.delete_cols, axis=1)
+                tau = m.torques_stack - m.contactForcesSum
+                G = Y.T @ Y
+                g = Y.T @ tau
+                tau_sq = float(tau @ tau)
+            base_error = float(getattr(idf, "base_error", 1.0) or 1.0)
+            p_nid = sorted(set(m.non_id).difference(self.delete_cols)
+                           .intersection(m.identified_params))
+            if opt["useRegressorRegularization"] and p_nid:
+                w = base_error / len(p_nid) * 1.5
+                for p in p_nid:
+                    i = self.pos_in_idable[p]
+                    G[i, i] += w * w
+                    g[i] += w * w * m.xStdModel[p]
+            S = self._scatter
+            G_free = S.T @ G @ S
+            g_free = S.T @ (g - G @ self._fixed_vec)
 
         x, status = self._get_solver().solve_quadratic(
             self._x0_free(), 2.0 * G_free, -2.0 * g_free, tau_sq
@@ -773,19 +788,20 @@ class SDP:
         K x = xBase +- tol plus all consistency constraints."""
         opt = idf.opt
         m = idf.model
-        K = m.Binv if opt["useBasisProjection"] else m.K
-        K = np.delete(K, self.delete_cols, axis=1)
-        tol = float(opt.get("sdpBaseParamTol", 1e-3))
+        with timing.span("sdp/setup"):
+            K = m.Binv if opt["useBasisProjection"] else m.K
+            K = np.delete(K, self.delete_cols, axis=1)
+            tol = float(opt.get("sdpBaseParamTol", 1e-3))
 
-        K_free = K @ self._scatter
-        k_off = K @ self._fixed_vec
-        A_extra = np.vstack([K_free, -K_free])
-        b_extra = np.concatenate([xBase + tol - k_off, -(xBase - tol) + k_off])
-        A = np.vstack([self.A, A_extra]) if self.A is not None else A_extra
-        b = np.concatenate([self.b, b_extra]) if self.b is not None else b_extra
+            K_free = K @ self._scatter
+            k_off = K @ self._fixed_vec
+            A_extra = np.vstack([K_free, -K_free])
+            b_extra = np.concatenate([xBase + tol - k_off, -(xBase - tol) + k_off])
+            A = np.vstack([self.A, A_extra]) if self.A is not None else A_extra
+            b = np.concatenate([self.b, b_extra]) if self.b is not None else b_extra
 
-        target = np.array([m.xStdModel[p] for p in self.free_params])
-        nf = len(self.free_params)
+            target = np.array([m.xStdModel[p] for p in self.free_params])
+            nf = len(self.free_params)
         x, status = self._get_solver(A, b).solve_quadratic(
             self._x0_free(), 2.0 * np.eye(nf), -2.0 * target, float(target @ target)
         )

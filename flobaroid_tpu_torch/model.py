@@ -47,7 +47,7 @@ from .dynamics.engine import DynamicsEngine, rpy_to_base_rot, rpy_to_base_rot_np
 from .models.urdf import RobotTree, joint_names_from_regressor_xml, load_urdf
 from .ops.gram import cat_padded, gram_batched
 from .parallel.mesh import Mesh, make_mesh, shard_slices
-from .utils import helpers
+from .utils import helpers, timing
 
 
 def _stribeck_series(vsig, vs):
@@ -570,12 +570,16 @@ class Model:
         thresh = float(self.opt.get("frictionSignThreshold", 0.02))
         for part in st["parts"]:
             Q, V, A, BR, BV, BA, vsig = (part[k] for k in ("Q", "V", "A", "BR", "BV", "BA", "vsig"))
-            Y = self.engine.regressor_batch(Q, V, A, BR, BV, BA)
-            yield part["sl"], self._identified_columns(Y, V, torch.tanh(vsig / thresh), vsig)
+            with timing.span("regressor/build"):  # closed before the consumer runs
+                timing.count("regressor_rows", Q.shape[0])
+                Y = self.engine.regressor_batch(Q, V, A, BR, BV, BA)
+                Y = self._identified_columns(Y, V, torch.tanh(vsig / thresh), vsig)
+            yield part["sl"], Y
 
     # ------------------------------------------------------------------
     # contact wrenches: J^T w on the device, chunk by chunk
     # ------------------------------------------------------------------
+    @timing.traced("contacts")
     def _contact_jt_w(self, lis, Q, BR, W):
         """sum_f J_f^T w_f, (n, 6+nd), for device tensors Q (n, nd), BR
         (n, 3, 3) or None, W (n, F, 6) and link indices lis (F,)."""
@@ -597,13 +601,14 @@ class Model:
             outs.append(fn(*args).to(self.device))
         return torch.cat(outs).double().cpu().numpy()
 
+    @timing.traced("reporting/contract")
     def _scan_contract(self, staged, xs) -> np.ndarray:
         """(K, N, rows) torque contractions tau_hat = Y @ x_k over the
         staged pieces."""
         xj = self._to_dev(np.stack(xs))
         outs = [torch.einsum("nrp,kp->knr", Y, xj.to(Y.device)).to(self.device)
                 for _, Y in self._identified_chunks(staged)]
-        return torch.cat(outs, dim=1).double().cpu().numpy()
+        return timing.host_read(torch.cat(outs, dim=1).double()).numpy()
 
     def _compute_streaming(self, N, rows):
         opt = self.opt
@@ -624,9 +629,10 @@ class Model:
         # summed over pieces in f64 on the model's device
         Gaug = torch.zeros((rows, P + 2, P + 2), dtype=torch.float64, device=self.device)
         for sl, Y in self._identified_chunks(st):
-            d = Y.device
-            aug = cat_padded([Y, tau[sl, :, None].to(d), cf[sl, :, None].to(d)])
-            Gaug += gram_batched(aug).double().to(self.device)
+            with timing.span("gram"):
+                d = Y.device
+                aug = cat_padded([Y, tau[sl, :, None].to(d), cf[sl, :, None].to(d)])
+                Gaug += gram_batched(aug).double().to(self.device)
 
         self.YStd = None
         self.YBase = None
@@ -657,9 +663,9 @@ class Model:
              self.cf_sq, self.G_base, self.g_base, self.g_cf_base) = cache[key]
             return
         w = torch.as_tensor(w2, dtype=torch.float64, device=self.device)
-        self.G_std = torch.einsum("r,rpq->pq", w, self.G_rows).cpu().numpy()
-        self.g_tau = (w @ self.g_rows).cpu().numpy()
-        self.g_cf = (w @ self.gcf_rows).cpu().numpy()
+        self.G_std = timing.host_read(torch.einsum("r,rpq->pq", w, self.G_rows)).numpy()
+        self.g_tau = timing.host_read(w @ self.g_rows).numpy()
+        self.g_cf = timing.host_read(w @ self.gcf_rows).numpy()
         self.tau_sq = float(w2 @ self.tau_sq_rows)
         self.tau_cf = float(w2 @ self.tau_cf_rows)
         self.cf_sq = float(w2 @ self.cf_sq_rows)
@@ -681,6 +687,7 @@ class Model:
             self._contract_cache[key] = self.contract_identified_multi([x])[0]
         return self._contract_cache[key]
 
+    @timing.traced("reporting/residual_stats")
     def residual_stats(self, xs):
         """Residual statistics for K parameter vectors against the
         measured torques (+ contact correction), computed on the device:
@@ -713,7 +720,7 @@ class Model:
                 pp += (pred * pred).sum(dim=1).double().to(self.device)
                 tp += (tm ** 2).sum(dim=0).double().to(self.device)
                 bn += torch.sqrt(r2.sum(dim=2)).sum(dim=1).double().to(self.device)
-            flat = torch.cat([rp.ravel(), pp.ravel(), tp, bn]).cpu().numpy()
+            flat = timing.host_read(torch.cat([rp.ravel(), pp.ravel(), tp, bn])).numpy()
             rp = flat[: K * rows].reshape(K, rows)
             pp = flat[K * rows : 2 * K * rows].reshape(K, rows)
             tp = flat[2 * K * rows : 2 * K * rows + rows]

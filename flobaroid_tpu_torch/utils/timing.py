@@ -1,30 +1,217 @@
-"""Timing / progress / profiling utilities.
+"""Tracing, timing and profiling utilities.
 
-Counterpart of flobaroid_tpu/utils/timing.py (the reference's
-helpers.Timer gated by showTiming, helpers.Progress gated on verbose,
-printMemUsage; reference identification/helpers.py:201-219,
-identifier.py:1424-1438), with a torch.profiler capture in place of the
-JAX device profile.
+The port's own spans and counters (`span`, `traced`, `count`,
+`host_read`, `Stages`), recorded only while torch.profiler
+records (`torch.autograd._profiler_enabled()`): the benchmark's traced
+run and the identify CLI's `jaxProfileDir` capture. With no profiler
+recording, `span` returns one shared no-op context and `count` returns at
+once: one check, no clock read. While one records, a span opens a
+profiler range named `flobaroid/<name>`, so exported traces show it beside
+the kernels it launched, and appends a `Record` to a bounded in-memory
+buffer (`records()`, `counters()`, `reset()`) on the profiler's clock
+(`time.time_ns()`, the Unix time kineto reports), read just outside the
+range so that the record encloses it.
+
+Also `stage_timer` (the reference's helpers.Timer gated by showTiming,
+identification/helpers.py:212-219), the torch.profiler capture in place
+of the JAX device profile, and printMemUsage (reference
+identifier.py:1424-1438).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import os
+import threading
 import time
-from typing import Any, Iterable
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+PREFIX = "flobaroid/"
+BOUND = 1 << 20  # records kept; later ones are counted in counters()["dropped"]
+
+_enabled = torch.autograd._profiler_enabled
+# the profiler's range op without record_function's Python-level dispatch
+# (about 2 us a span against 17 us on a CPU build); a function-scope range,
+# so it adds no device-side annotation to the trace
+_RecordFunction = torch._C._profiler._RecordFunctionFast
 
 
-class Timer:
-    """`with Timer() as t: ...; t.interval` (reference helpers.py:212-219)."""
+@dataclass(slots=True)
+class Record:
+    """One span: its id, its parent's (None for a root), its root's (its
+    own for a root), name, host thread (`threading.get_ident()`), start and
+    end in Unix ns (end None while open), and attrs: the span's own
+    attributes plus the counters incremented while it was the innermost
+    open span."""
+
+    id: int
+    parent: int | None
+    root: int
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int | None
+    attrs: dict
+
+
+class _Buffer:
+    """The records and counter totals of this process, bounded at BOUND
+    records."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.records: list[Record] = []
+        self.counters: dict[str, int] = {}
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+
+    def stack(self) -> list[Record]:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def add(self, rec: Record) -> None:
+        with self.lock:
+            if len(self.records) < BOUND:
+                self.records.append(rec)
+            else:
+                self.counters["dropped"] = self.counters.get("dropped", 0) + 1
+
+    def count(self, name: str, n: int) -> None:
+        st = self.stack()
+        with self.lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+            if st:
+                a = st[-1].attrs
+                a[name] = a.get(name, 0) + n
+
+
+_buffer = _Buffer()
+
+
+class _Off:
+    __slots__ = ()
 
     def __enter__(self):
-        self.start = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self.interval = time.perf_counter() - self.start
         return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "rf")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        st = _buffer.stack()
+        parent = st[-1] if st else None
+        self.rf = _RecordFunction(PREFIX + self.name)
+        start = time.time_ns()
+        self.rf.__enter__()
+        rid = next(_buffer.ids)
+        rec = Record(rid, parent.id if parent else None, parent.root if parent else rid,
+                     self.name, threading.get_ident(), start, None, self.attrs)
+        _buffer.add(rec)
+        st.append(rec)
+        return self
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        _buffer.stack().pop().end_ns = time.time_ns()
+        return False
+
+
+def span(name: str, **attrs):
+    """A context manager: the span `name` while a profiler records, else
+    the shared no-op."""
+    if not _enabled():
+        return _OFF
+    return _Span(name, attrs)
+
+
+def traced(name: str):
+    """Decorator: each call of the function runs in span(name)."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*a, **k):
+            if not _enabled():
+                return fn(*a, **k)
+            with _Span(name, {}):
+                return fn(*a, **k)
+
+        return call
+
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` and to the innermost open span's
+    record, while a profiler records."""
+    if _enabled():
+        _buffer.count(name, n)
+
+
+def host_read(t: torch.Tensor) -> torch.Tensor:
+    """t.cpu(), the host waiting on the device: the span `host_read`,
+    counted in `host_reads`, while a profiler records."""
+    if not _enabled():
+        return t.cpu()
+    with _Span("host_read", {}):
+        _buffer.count("host_reads", 1)
+        return t.cpu()
+
+
+def records() -> list[Record]:
+    """The spans recorded since the last reset, in the order they opened."""
+    with _buffer.lock:
+        return list(_buffer.records)
+
+
+def counters() -> dict[str, int]:
+    """Counter totals since the last reset (`dropped`: records past BOUND)."""
+    with _buffer.lock:
+        return dict(_buffer.counters)
+
+
+def reset() -> None:
+    with _buffer.lock:
+        _buffer.records.clear()
+        _buffer.counters.clear()
+
+
+class Stages:
+    """Host seconds of one call's consecutive stages: `with stage(name):`
+    adds to times[name] the seconds from the end of the previous stage (or
+    this object's creation) to its own end: one `perf_counter` read per
+    boundary, traced or not. While a profiler records, each stage is also
+    the span `<prefix>/<name>`."""
+
+    def __init__(self, times: dict, prefix: str):
+        self.times, self.prefix = times, prefix
+        self._t = time.perf_counter()
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        try:
+            with span(self.prefix + "/" + name):
+                yield
+        finally:
+            now = time.perf_counter()
+            self.times[name] = self.times.get(name, 0.0) + now - self._t
+            self._t = now
 
 
 @contextlib.contextmanager
@@ -34,23 +221,6 @@ def stage_timer(name: str, opt: dict | None = None):
     yield
     if opt is None or opt.get("showTiming"):
         print(f"({name} took {time.perf_counter() - t0:.3f} sec.)")
-
-
-class Progress:
-    """tqdm progress bars gated on verbose (reference helpers.py:201-209)."""
-
-    def __init__(self, config: dict):
-        self.config = config
-
-    def progress(self, it: Iterable) -> Iterable:
-        if self.config.get("verbose"):
-            try:
-                from tqdm import tqdm
-
-                return tqdm(it)
-            except ImportError:
-                return it
-        return it
 
 
 @contextlib.contextmanager

@@ -8,7 +8,9 @@ What differs from the JAX module:
     simulation, contact J^T w, Grams, residual statistics, reporting
     contractions) is a Python loop over `gramChunk`-sample chunks that
     rebuilds what it needs of the chunk (no padding, no masks, no cached
-    regressor stack);
+    regressor stack); on a CUDA device that chunk build is captured in
+    one CUDA graph per piece shape and device, and replayed
+    (`utils/graphs.py`);
   * both Gram sites — the per-channel Grams of the streamed identify and
     the structural Gram of `_random_gram` — go through the hand-written
     Gram kernel (`ops.gram.gram_batched`), each chunk's Gram in f32 and
@@ -35,6 +37,7 @@ optional friction blocks [Fc(n)] [Fv(n) | Fv+(n) Fv-(n)] [off(n)] [Fs(n)].
 
 from __future__ import annotations
 
+import collections
 from typing import Any
 
 import numpy as np
@@ -48,6 +51,19 @@ from .models.urdf import RobotTree, joint_names_from_regressor_xml, load_urdf
 from .ops.gram import cat_padded, gram_batched
 from .parallel.mesh import Mesh, make_mesh, shard_slices
 from .utils import helpers, timing
+from .utils.graphs import GraphCache
+
+# chunk-build graphs (and keys not captured yet) kept per device of a Model,
+# least recently used evicted first: a dataset has two piece shapes per
+# device, the full chunk and the tail (three where shards share a device
+# and the tail's shards differ in size)
+GRAPH_BOUND = 4
+# a piece shape is captured at its 5th build: one identification of a
+# one-piece recording builds it at most four times (the a-priori
+# simulation, the Gram, the residual and the contraction passes), and a
+# capture (15-32 ms on an H100) costs what 4-10 replays save, so such a run
+# stays eager
+GRAPH_CAPTURE_AT = 5
 
 
 def _stribeck_series(vsig, vs):
@@ -160,6 +176,9 @@ class Model:
         self._staged: dict | None = None
         self._dataset_gen = 0
         self._meshes: dict = {}
+        self._graphs: dict[torch.device, GraphCache] = collections.defaultdict(
+            lambda: GraphCache(GRAPH_BOUND, GRAPH_CAPTURE_AT))
+        self._gravity_cols: dict = {}  # device -> index of the gravity-only columns
         # precision of the stored Grams (drives the QR rank threshold):
         # f64 exactly when the compute dtype is f64
         self._gram_dtype = (
@@ -522,8 +541,10 @@ class Model:
         opt = self.opt
         nd = self.num_dofs
         if opt["identifyGravityParamsOnly"]:
-            keep = torch.tensor([p for p in range(self.num_model_params) if p % 10 < 4],
-                                device=Y.device)
+            keep = self._gravity_cols.get(Y.device)
+            if keep is None:  # once per device: a graph's capture may not copy from the host
+                keep = self._gravity_cols[Y.device] = torch.tensor(
+                    [p for p in range(self.num_model_params) if p % 10 < 4], device=Y.device)
             Y = Y[:, :, keep]
         if opt["identifyFrictionSimultaneously"]:
             blocks = [torch.diag_embed(sign)]
@@ -562,18 +583,44 @@ class Model:
         self._staged = st
         return st
 
+    def _chunk_build(self, Q, V, A, BR, BV, BA, vsig):
+        """Identified regressor piece (n, rows, P) of staged state. The
+        Coulomb sign series is derived on the device from the sign
+        velocities (the tanh of helpers.get_friction_sign_series)."""
+        thresh = float(self.opt.get("frictionSignThreshold", 0.02))
+        Y = self.engine.regressor_batch(Q, V, A, BR, BV, BA)
+        return self._identified_columns(Y, V, torch.tanh(vsig / thresh), vsig)
+
+    def _graph_key(self, Q, BR) -> tuple:
+        """Everything `_chunk_build` reads as a constant, which a CUDA graph
+        of it holds fixed: rows, dtype, the base, the options (the device
+        has a cache of its own)."""
+        o = self.opt
+        return (Q.shape[0], Q.dtype, BR is not None,
+                bool(o["identifyGravityParamsOnly"]), bool(o["identifyFrictionSimultaneously"]),
+                bool(o["identifySymmetricVelFriction"]), float(o.get("stribeckVelocity", 0)),
+                float(o.get("frictionSignThreshold", 0.02)))
+
     def _identified_chunks(self, st):
         """(slice, identified regressor piece (n, rows, P) on the piece's
-        device) over the staged dataset, in sample order. The Coulomb sign
-        series is derived on the device from the sign velocities (the tanh
-        of helpers.get_friction_sign_series)."""
-        thresh = float(self.opt.get("frictionSignThreshold", 0.02))
+        device) over the staged dataset, in sample order. On a CUDA device
+        each piece shape's build is captured in a CUDA graph at its
+        `GRAPH_CAPTURE_AT`-th build and replayed after (`utils.graphs`); on
+        the CPU it runs eager. Each piece is a fresh tensor that later
+        pieces leave alone."""
         for part in st["parts"]:
-            Q, V, A, BR, BV, BA, vsig = (part[k] for k in ("Q", "V", "A", "BR", "BV", "BA", "vsig"))
+            Q, BR = part["Q"], part["BR"]
+            args = tuple(part[k] for k in ("Q", "V", "A", "BR", "BV", "BA", "vsig"))
             with timing.span("regressor/build"):  # closed before the consumer runs
                 timing.count("regressor_rows", Q.shape[0])
-                Y = self.engine.regressor_batch(Q, V, A, BR, BV, BA)
-                Y = self._identified_columns(Y, V, torch.tanh(vsig / thresh), vsig)
+                if Q.device.type == "cuda":
+                    Y, how = self._graphs[Q.device](self._graph_key(Q, BR), self._chunk_build,
+                                                    args)
+                else:
+                    Y, how = self._chunk_build(*args), "eager"
+                timing.count("regressor_graph_replays", int(how == "replay"))
+                if how == "capture":
+                    timing.count("regressor_graph_captures")
             yield part["sl"], Y
 
     # ------------------------------------------------------------------

@@ -14,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from flobaroid_tpu_torch import model as model_mod
 from flobaroid_tpu_torch.identification.identifier import Identification
 from flobaroid_tpu_torch.ops import gram as tgram
+from flobaroid_tpu_torch.simulation.scenarios import walking_contact_scenario
+from flobaroid_tpu_torch.utils import graphs, timing
 from flobaroid_tpu_torch.utils.config import load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,3 +103,170 @@ def test_slice_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     xg, xc = g.model.xBase, c.model.xBase
     assert np.linalg.norm(xg - xc) <= 1e-4 * np.linalg.norm(xc)
     assert abs(g.res_error - c.res_error) <= 1e-3
+
+
+# ----------------------------------------------------------------------
+# the streamed regressor build replayed from CUDA graphs (utils/graphs.py)
+# ----------------------------------------------------------------------
+H30_URDF = os.path.join(REPO, "examples", "models", "humanoid30.urdf")
+CHUNK_FIELDS = ("Q", "V", "A", "BR", "BV", "BA", "vsig")
+
+
+def _arm_samples(n, seed=0, nd=7):
+    rng = np.random.default_rng(seed)
+    return dict(positions=rng.uniform(-1.5, 1.5, (n, nd)),
+                velocities=rng.standard_normal((n, nd)),
+                accelerations=rng.standard_normal((n, nd)) * 3,
+                torques=rng.standard_normal((n, nd)), times=np.arange(n) / 200.0,
+                frequency=np.array(200.0))
+
+
+def _staged(model, samples):
+    idx = np.arange(len(samples["positions"]))
+    return model._stage_streaming(samples, idx, *model._gather_state(samples, idx))
+
+
+def _eager(model, st):
+    return [model._chunk_build(*(p[k] for k in CHUNK_FIELDS)) for p in st["parts"]]
+
+
+def _passes_equal_eager(model, st, passes=7):
+    """`passes` passes over the staged pieces, every piece kept: each equals
+    the eager build of its piece bit for bit, with the same strides, so no
+    replay overwrote a piece handed out before it. Seven passes take a
+    one-piece dataset through its eager builds, its capture and two
+    replays."""
+    kept = [list(model._identified_chunks(st)) for _ in range(passes)]
+    eager = _eager(model, st)
+    for pieces in kept:
+        assert [sl for sl, _ in pieces] == [p["sl"] for p in st["parts"]]
+        for (_, Y), E in zip(pieces, eager):
+            assert Y.shape == E.shape and Y.stride() == E.stride()
+            assert torch.equal(Y, E)
+    return kept
+
+
+def _graphs_held(model):
+    return sum(isinstance(g, graphs.Captured)
+               for cache in model._graphs.values() for g in cache.entries.values())
+
+
+GRAPH_CASES = {  # (urdf, options, samples, piece rows)
+    "arm-4096-2656": ("arm", dict(gramChunk=4096), 4096 + 2656, [4096, 2656]),
+    "arm-2000": ("arm", dict(gramChunk=4096), 2000, [2000]),
+    "arm-gravity-only": ("arm", dict(gramChunk=1024, identifyGravityParamsOnly=1), 1500,
+                         [1024, 476]),
+    "arm-4-shards": ("arm", dict(gramChunk=4096, shardSamples=4), 4096 + 2656,
+                     [1024] * 4 + [664] * 4),
+    "h30-friction": ("h30", dict(gramChunk=1024, floatingBase=1, identifyFrictionSimultaneously=1,
+                                 identifySymmetricVelFriction=0), 1500, [1024, 476]),
+    "h30-friction-stribeck": ("h30", dict(gramChunk=1024, floatingBase=1,
+                                          identifyFrictionSimultaneously=1,
+                                          identifySymmetricVelFriction=0, stribeckVelocity=0.1),
+                              1500, [1024, 476]),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_replayed_chunk_build_equals_eager(cuda_device, case):
+    """A shape's first builds eager, its `GRAPH_CAPTURE_AT`-th captured,
+    later ones replayed: every piece equals its eager build bit for bit,
+    the model holds one graph per piece shape, and the counters of the
+    traced passes say so (`regressor_graph_captures` one per shape)."""
+    robot, over, n, rows = GRAPH_CASES[case]
+    opt = load_config(None, overrides=dict(materializeRegressor=0, verbose=0, **over))
+    m = model_mod.Model(opt, ARM_URDF if robot == "arm" else H30_URDF, regressor_init=False,
+              device=cuda_device)
+    samples = (_arm_samples(n) if robot == "arm"
+               else walking_contact_scenario(m, N=n, seed=1)[0])
+    st = _staged(m, samples)
+    assert [p["Q"].shape[0] for p in st["parts"]] == rows
+    assert all(p["Q"].device.type == "cuda" for p in st["parts"])
+    timing.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _passes_equal_eager(m, st)
+    counters = timing.counters()
+    timing.reset()
+    assert _graphs_held(m) == len(set(rows))
+    assert [d.type for d in m._graphs] == ["cuda"]  # every shard on the one card
+    sightings = [7 * rows.count(r) for r in set(rows)]
+    assert counters["regressor_graph_captures"] == len(sightings)
+    assert counters["regressor_graph_replays"] == sum(
+        n - model_mod.GRAPH_CAPTURE_AT for n in sightings)
+
+
+def test_a_new_friction_threshold_recaptures(cuda_device):
+    """Two datasets on one Model with another frictionSignThreshold between
+    them: the second is built by a graph of its own, not the stale one."""
+    opt = load_config(None, overrides=dict(materializeRegressor=0, verbose=0, gramChunk=4096,
+                                           identifyFrictionSimultaneously=1))
+    m = model_mod.Model(opt, ARM_URDF, regressor_init=False, device=cuda_device)
+    st = _staged(m, _arm_samples(2000, seed=1))
+    _passes_equal_eager(m, st)
+    assert _graphs_held(m) == 1
+    m.opt["frictionSignThreshold"] = 0.5
+    st = _staged(m, _arm_samples(2000, seed=2))
+    old = [Y for _, Y in m._identified_chunks(st)]  # eager: a new key
+    (cache,) = m._graphs.values()
+    assert cache.entries[m._graph_key(st["parts"][0]["Q"], None)] == 1  # one eager build
+    _passes_equal_eager(m, st)
+    assert _graphs_held(m) == 2
+    assert torch.equal(old[0], _eager(m, st)[0])
+    m.opt["frictionSignThreshold"] = 0.02
+    assert not torch.equal(old[0], _eager(m, st)[0])  # the threshold reaches the columns
+
+
+def test_graph_cache_is_bounded_on_the_card(cuda_device):
+    """Six recording lengths on one Model: at most GRAPH_BOUND keys are
+    kept, and every build still equals eager."""
+    opt = load_config(None, overrides=dict(materializeRegressor=0, verbose=0, gramChunk=4096))
+    m = model_mod.Model(opt, ARM_URDF, regressor_init=False, device=cuda_device)
+    for n in (500, 600, 700, 800, 900, 1000):
+        _passes_equal_eager(m, _staged(m, _arm_samples(n, seed=n)))
+        (cache,) = m._graphs.values()
+        assert len(cache.entries) <= model_mod.GRAPH_BOUND
+    assert [k[0] for k in cache.entries] == [700, 800, 900, 1000]
+    assert _graphs_held(m) == 4
+
+
+def test_streamed_identify_with_graphs_equals_eager(cuda_device, tmp_path, monkeypatch):
+    """The benchmark's arm options on one card, three identifications of one
+    recording (eager passes; eager, capture and replay; replays only),
+    against the same identify with every build eager (the capture replaced
+    by the eager build):
+    the same Grams bit for bit. The standard parameters and the residual
+    within 1e-12 relative: the f64 SDP solve on the card is not bitwise
+    reproducible, two eager identifies of the same Grams on an H100 part by
+    up to ~3e-15 of max|x|."""
+    urdf = str(tmp_path / "arm.urdf")
+    shutil.copy(ARM_URDF, urdf)
+    shutil.copy(ARM_URDF + ".regressor.npz", urdf + ".regressor.npz")
+    opt = dict(floatingBase=0, simulateTorques=0, useStructuralRegressor=1, randomSamples=600,
+               estimateWith="std", materializeRegressor=0, gramChunk=4096,
+               constrainToConsistent=1, limitOverallMass=1, limitMassRange=1.0,
+               limitMassToApriori=1, limitMassAprioriBoundary=0.3, verbose=0)
+    samples = _arm_samples(4096 + 2656, seed=5)
+    samples["torques"] *= 0.05
+    runs = {}
+    for mode in ("eager", "graphs"):
+        if mode == "eager":
+            monkeypatch.setattr(graphs, "Captured", lambda fn, args: lambda a: fn(*a))
+        else:
+            monkeypatch.undo()
+        idf = Identification(load_config(None, overrides=opt), urdf, device=cuda_device)
+        out = []
+        for _ in range(3):
+            idf.data.init_from_data(dict(samples))
+            idf.estimateParameters()
+            m = idf.model
+            out.append((np.array(m.G_std), np.array(m.g_tau), np.array(m.G_base),
+                        np.array(m.xStd), float(idf.res_error)))
+        runs[mode] = (idf, out)
+    assert _graphs_held(runs["eager"][0].model) == 0
+    assert _graphs_held(runs["graphs"][0].model) == 2
+    for eager, graphed in zip(runs["eager"][1], runs["graphs"][1]):
+        for e, g in zip(eager[:3], graphed[:3]):  # G_std, g_tau, G_base
+            np.testing.assert_array_equal(g, e)
+        (xe, re), (xg, rg) = eager[3:], graphed[3:]
+        assert np.max(np.abs(xg - xe)) <= 1e-12 * np.max(np.abs(xe))
+        assert abs(rg - re) <= 1e-12 * abs(re)

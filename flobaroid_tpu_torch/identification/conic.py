@@ -20,7 +20,9 @@ What differs from the JAX module:
   * the affine PSD maps are probed with numpy in f64 as M(0) and
     M(e_i) - M(0) (exact for affine maps) instead of jacfwd;
   * a centering stage is a Python loop over Newton steps with one host
-    read per step (the stopping test), not a lax.while_loop;
+    read per step (the stopping test), not a lax.while_loop; on a CUDA
+    device a `QuadBarrierSolver` replays its step from one CUDA graph
+    once it has taken a few;
   * the explicit certification rung runs whenever no candidate qualifies
     for 'optimal', not only when no stage reached the quadratic zone:
     a stage can end at lam < 0.25 on a rung too low for its gap bound,
@@ -44,6 +46,7 @@ import torch
 
 from ..device import resolve_device
 from ..utils import timing
+from ..utils.graphs import GraphCache
 
 
 @dataclass
@@ -63,6 +66,13 @@ class BarrierProblem:
 
 
 _LS_STEPS = 0.5 ** np.arange(40)
+# a solver's Newton step is captured in a CUDA graph at its 8th step and
+# replayed after (`QuadBarrierSolver._step`). On an H100 a capture costs
+# 10-15 ms with its first replay, and a replay saves ~3 ms a step (the
+# arm's SDP 3.6 -> 0.50 ms, humanoid30's 4.3 -> 0.67 ms): a solver that
+# lives 11 steps or more wins its capture back, and the 16 steps of the
+# arm's cold solve replay 8. Fewer steps never capture.
+NEWTON_GRAPH_CAPTURE_AT = 8
 _F64 = torch.float64
 
 
@@ -317,30 +327,39 @@ def _newton_direction(g, Hm):
 
 def _armijo(x, dx, dec, vals_ext, steps):
     """The largest step of `steps` whose value (vals_ext[1:]; vals_ext[0]
-    is the value at x) is finite and meets the Armijo condition.
-    Returns (x_new, dec, any_ok, step)."""
+    is the value at x) is finite and meets the Armijo condition, chosen on
+    the device (no host read). Returns [x_new (n), dec, any_ok, step] in
+    one f64 tensor."""
     vals = vals_ext[1:]
     ok = torch.isfinite(vals) & (vals <= vals_ext[0] - 1e-4 * steps * dec)
     any_ok = ok.any()
-    step_sel = torch.where(any_ok, steps[ok.to(torch.int8).argmax()], 0.0)
-    return torch.where(any_ok, x + step_sel * dx, x), dec, any_ok, step_sel
+    first_ok = steps.index_select(0, ok.to(torch.int8).argmax().reshape(1))[0]
+    step_sel = torch.where(any_ok, first_ok, 0.0)
+    x_new = torch.where(any_ok, x + step_sel * dx, x)
+    return torch.cat([x_new, torch.stack([dec, any_ok.to(_F64), step_sel])])
 
 
 def _newton_run(step, x, tol, max_iter, stall_ratio):
-    """One centering stage: Newton steps `step(x) -> (x, dec, ok, step)`
-    until the decrement converges, the line search fails (step < 1e-8),
-    or the decrement stalls (ratio >= stall_ratio after the damped
-    phase). One host read per step; each step is the span
-    `sdp/newton_step`, counted in `sdp_newton_steps`. Returns (x,
-    iterations, dec, ok)."""
+    """One centering stage: Newton steps `step(x) -> (out, how)`, `out`
+    the packed [x_new, dec, ok, step] of `_armijo` and `how` "eager",
+    "capture" or "replay" (`utils.graphs`), until the decrement converges,
+    the line search fails (step < 1e-8), or the decrement stalls (ratio >=
+    stall_ratio after the damped phase). One host read per step; each step
+    is the span `sdp/newton_step`, counted in `sdp_newton_steps`, its
+    replays in `sdp_newton_graph_replays` (1 or 0) and its captures in
+    `sdp_newton_graph_captures`. Returns (x, iterations, dec, ok)."""
+    n = x.numel()
     it, dec, prev_dec, ok, size = 0, np.inf, np.inf, True, 1.0
     while (it < max_iter and ok and dec / 2.0 >= tol and size >= 1e-8
            and (it < 6 or dec <= stall_ratio * prev_dec)):
         with timing.span("sdp/newton_step"):
             timing.count("sdp_newton_steps")
-            x, dec_n, ok_n, size_n = step(x)
-            dec_f, ok_f, size_f = timing.host_read(torch.stack(
-                [dec_n, ok_n.to(_F64), size_n.to(_F64)])).tolist()
+            out, how = step(x)
+            timing.count("sdp_newton_graph_replays", int(how == "replay"))
+            if how == "capture":
+                timing.count("sdp_newton_graph_captures")
+            x = out[:n]
+            dec_f, ok_f, size_f = timing.host_read(out[n:]).tolist()
         prev_dec, dec, ok, size = dec, dec_f, bool(ok_f), size_f
         it += 1
     return x, it, dec, ok
@@ -367,6 +386,9 @@ class QuadBarrierSolver:
         self._warm = None
         self._p1 = None
         self._newton_iters = 0  # Newton steps of the solve in progress
+        # the graph of its one step (fixed shapes), on a card only
+        self._graph = (GraphCache(1, NEWTON_GRAPH_CAPTURE_AT) if self.device.type == "cuda"
+                       else None)
 
     def _t(self, a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=_F64, device=self.device)
@@ -379,6 +401,10 @@ class QuadBarrierSolver:
         return float(t * self._quad(x, H, q) + self.core.value(x))
 
     def _newton_step(self, x, t, H, q):
+        """One damped Newton step at barrier parameter t (a 0-d f64 tensor
+        on the solver's device, so that a captured step reads it from
+        memory): the packed [x_new, dec, ok, step] of `_armijo`. Nothing in
+        it reads the device from the host."""
         gb, Hb = self.core.grad_hess(x)
         Hx_q = H @ x + q
         dx, dec = _newton_direction(t * Hx_q + gb, t * H + Hb)
@@ -389,10 +415,19 @@ class QuadBarrierSolver:
         vals_ext = t * quad_ext + self.core.ray_values(x, dx, s)
         return _armijo(x, dx, dec, vals_ext, self._steps)
 
+    def _step(self, x, t, H, q):
+        """(`_newton_step`, how it ran): on a CUDA device through the
+        solver's graph cache (eager until its `NEWTON_GRAPH_CAPTURE_AT`-th
+        step, then captured and replayed: the solver's shapes never
+        change), eager on the CPU."""
+        if self._graph is None:
+            return self._newton_step(x, t, H, q), "eager"
+        return self._graph("newton_step", self._newton_step, (x, t, H, q))
+
     def _newton_run(self, x, t, H, q, tol, max_iter, stall_ratio):
         """One centering stage at barrier parameter t (see _newton_run)."""
-        out = _newton_run(lambda y: self._newton_step(y, t, H, q), x, tol, max_iter,
-                          stall_ratio)
+        t = torch.full((), float(t), dtype=_F64, device=self.device)
+        out = _newton_run(lambda y: self._step(y, t, H, q), x, tol, max_iter, stall_ratio)
         self._newton_iters += out[1]
         return out
 
@@ -619,7 +654,7 @@ def barrier_minimize(
             dx, dec = _newton_direction(t * go + gb, t * Ho + Hb)
             cand = x[None, :] + steps_ext[:, None] * dx[None, :]
             vals_ext = t * prob.objective(cand) + core.ray_values(x, dx, steps_ext)
-            return _armijo(x, dx, dec, vals_ext, steps)
+            return _armijo(x, dx, dec, vals_ext, steps), "eager"
 
         x, it, dec, ok = _newton_run(step, x, tol, max_iter, stall_ratio)
         newton_iters += it

@@ -451,6 +451,11 @@ class SDP:
         else:
             key = ("ext", self._structure_key(), hash(A.tobytes()), hash(b.tobytes()))
         if key not in self._solver_cache:
+            if A is not None:
+                # the extra rows hold one solve's xBase: keep the newest such
+                # solver only, not one (with its CUDA graph) per identification
+                for k in [k for k in self._solver_cache if k[0] == "ext"]:
+                    del self._solver_cache[k]
             self._solver_cache[key] = conic.QuadBarrierSolver(
                 self.A if A is None else A,
                 self.b if b is None else b,

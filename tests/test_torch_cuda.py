@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from flobaroid_tpu_torch import model as model_mod
+from flobaroid_tpu_torch.identification import conic
 from flobaroid_tpu_torch.identification.identifier import Identification
 from flobaroid_tpu_torch.ops import gram as tgram
 from flobaroid_tpu_torch.simulation.scenarios import walking_contact_scenario
@@ -270,3 +271,138 @@ def test_streamed_identify_with_graphs_equals_eager(cuda_device, tmp_path, monke
         (xe, re), (xg, rg) = eager[3:], graphed[3:]
         assert np.max(np.abs(xg - xe)) <= 1e-12 * np.max(np.abs(xe))
         assert abs(rg - re) <= 1e-12 * abs(re)
+
+
+# ----------------------------------------------------------------------
+# the SDP Newton step replayed from one CUDA graph per solver (conic.py)
+# ----------------------------------------------------------------------
+ARM_SDP = dict(floatingBase=0, simulateTorques=0, useStructuralRegressor=1, randomSamples=600,
+               estimateWith="std", materializeRegressor=0, gramChunk=4096,
+               constrainToConsistent=1, limitOverallMass=1, limitMassRange=1.0,
+               limitMassToApriori=1, limitMassAprioriBoundary=0.3, verbose=0)
+H30_SDP = dict(  # bench.py:90-98, the quadratic CAD regularization
+    floatingBase=1, identifyFrictionSimultaneously=1, identifySymmetricVelFriction=1,
+    constrainToConsistent=1, limitOverallMass=1, limitMassRange=5.0, limitMassToApriori=1,
+    limitMassAprioriBoundary=0.5, cadRegularizationMode="observability",
+    useStructuralRegressor=1, randomSamples=2000, materializeRegressor=0, estimateWith="std",
+    gramChunk=1024, verbose=0)
+
+
+def _sdp_identification(robot, device, tmp_path):
+    """(Identification, three recordings): the arm at N = 2000 with the
+    benchmark's options, or humanoid30 walking at N = 1000 with bench.py's."""
+    if robot == "arm":
+        urdf = str(tmp_path / "arm.urdf")
+        shutil.copy(ARM_URDF, urdf)
+        shutil.copy(ARM_URDF + ".regressor.npz", urdf + ".regressor.npz")
+        idf = Identification(load_config(None, overrides=ARM_SDP), urdf, device=device)
+        recs = [_arm_samples(2000, seed=s) for s in (11, 12, 13)]
+        for r in recs:
+            r["torques"] *= 0.05
+        return idf, recs
+    idf = Identification(load_config(None, overrides=H30_SDP), H30_URDF, device=device)
+    return idf, [walking_contact_scenario(idf.model, N=1000, seed=s)[0] for s in (11, 12, 13)]
+
+
+@pytest.fixture
+def step_args(cuda_device, tmp_path, monkeypatch):
+    """The main solver of the arm's SDP on the card and the (x, t, H, q) of
+    every step of its second identification."""
+    seen = []
+    step = conic.QuadBarrierSolver._step
+
+    def recorded(self, x, t, H, q):
+        seen.append((self, (x.clone(), t.clone(), H.clone(), q.clone())))
+        return step(self, x, t, H, q)
+
+    monkeypatch.setattr(conic.QuadBarrierSolver, "_step", recorded)
+    idf, recs = _sdp_identification("arm", cuda_device, tmp_path)
+    for r in recs[:2]:
+        seen.clear()
+        idf.data.init_from_data(dict(r))
+        idf.estimateParameters()
+    solver = idf.sdp._last_solver
+    return solver, [a for s, a in seen if s is solver]
+
+
+def test_replayed_newton_step_equals_eager(step_args):
+    """Every step of an identification, replayed from one graph captured on
+    the first step's inputs, against the eager step on the same (x, t, H,
+    q). With deterministic algorithms (the barrier gradient's f64
+    `index_add_` then sums in a fixed order) bit for bit; without them the
+    atomics may sum in another order under replay than in eager steps,
+    which repeat their own bits back to back: x within 1e-14 of max|x|
+    (2e-17 measured on an H100), the same accepted step, and the decrement
+    within 1e-12, five orders under the tightest stopping tolerance (it is
+    -g.dx, a difference of products near convergence: 1.8e-18 measured
+    where it read 1.3e-4)."""
+    solver, args = step_args
+    assert len(args) >= 3 and args[0][1].shape == () and args[0][1].device.type == "cuda"
+    n = solver.n
+    for deterministic in (True, False):
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            graph = graphs.Captured(solver._newton_step, args[0])
+            for a in args:
+                eager, replay = solver._newton_step(*a), graph(a)
+                assert replay.shape == (n + 3,)
+                if deterministic:
+                    assert torch.equal(replay, eager)
+                else:
+                    dx = (replay - eager).abs()
+                    assert float(dx[:n].max()) <= 1e-14 * float(eager[:n].abs().max())
+                    assert float(dx[n]) <= 1e-12  # the decrement, -g.dx
+                    assert torch.equal(replay[n + 1:], eager[n + 1:])  # ok, step
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def test_newton_graph_runs_without_a_host_sync(step_args):
+    """An eager step, the capture and a replay raise nothing under
+    set_sync_debug_mode("error"): the step reads nothing from the card on
+    the host; the solver's one host read per step comes after it."""
+    solver, args = step_args
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solver._newton_step(*args[0])
+        graph = graphs.Captured(solver._newton_step, args[0])
+        graph(args[1])
+        with pytest.raises(RuntimeError):  # the mode is on: a 0-d index syncs
+            solver._steps[torch.tensor(1, device=solver.device)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("robot", ["arm", "h30"])
+def test_identify_with_newton_graphs_equals_eager(cuda_device, tmp_path, monkeypatch, robot):
+    """Three identifications (the first cold: eager steps, then the capture
+    and replays; then replays only) against the same three with every
+    Newton step eager: the same status and Newton steps each time, xBase
+    within 1e-8 relative."""
+    runs = {}
+    for mode in ("eager", "graphs"):
+        if mode == "eager":
+            monkeypatch.setattr(conic, "NEWTON_GRAPH_CAPTURE_AT", 10**9)
+        else:
+            monkeypatch.undo()
+        idf, recs = _sdp_identification(robot, cuda_device, tmp_path)
+        timing.reset()
+        out = []
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            for r in recs:
+                idf.data.init_from_data(dict(r))
+                idf.estimateParameters()
+                out.append((idf.sdp.last_status, idf.sdp.last_info["newton_iters"],
+                            np.array(idf.model.xBase)))
+        runs[mode] = (out, timing.counters())
+        timing.reset()
+    (eager, c_eager), (graphed, c_graphed) = runs["eager"], runs["graphs"]
+    assert c_eager["sdp_newton_graph_replays"] == 0
+    assert "sdp_newton_graph_captures" not in c_eager
+    assert c_graphed["sdp_newton_graph_captures"] >= 1
+    assert c_graphed["sdp_newton_graph_replays"] > c_graphed["sdp_newton_steps"] / 2
+    assert c_graphed["sdp_newton_steps"] == c_eager["sdp_newton_steps"]
+    for (se, ie, xe), (sg, ig, xg) in zip(eager, graphed):
+        assert sg == se and se.startswith("optimal") and ig == ie
+        assert np.max(np.abs(xg - xe)) <= 1e-8 * np.max(np.abs(xe))
